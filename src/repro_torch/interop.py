@@ -1,0 +1,60 @@
+"""Carry state, stores and weights across as numpy arrays.
+
+The JAX package and the torch package exchange data only as numpy
+arrays: a test makes its inputs with numpy and hands the same arrays to
+both. These helpers check what they are given and put it on a device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.device import resolve_device
+from repro_torch.stencil.gol3d import Gol3d, Gol3dConfig
+
+__all__ = ["from_reference_state", "store_from_numpy", "store_to_numpy",
+           "weights_from_numpy"]
+
+
+def from_reference_state(state_path: np.ndarray, cfg: Gol3dConfig,
+                         device="cuda") -> Gol3d:
+    """A :class:`Gol3d` of ``cfg`` whose state is ``state_path``, the
+    (M³,) f32 state in ``cfg.ordering`` order (e.g. a JAX
+    ``Gol3d.state_path``), on ``device``."""
+    arr = np.asarray(state_path)
+    if arr.shape != (cfg.M ** 3,) or arr.dtype != np.float32:
+        raise ValueError(f"state_path must be ({cfg.M ** 3},) float32, "
+                         f"got {arr.shape} {arr.dtype}")
+    app = Gol3d(dataclasses.replace(cfg, device=str(device)))
+    app.state_path = torch.from_numpy(arr.copy()).to(app.device)
+    return app
+
+
+def store_from_numpy(store: np.ndarray, device="cuda") -> torch.Tensor:
+    """An ``(nb, T, T, T)`` or ``(C, nb, T, T, T)`` f32 block store."""
+    arr = np.asarray(store)
+    ok = arr.ndim in (4, 5) and arr.shape[-1] == arr.shape[-2] == arr.shape[-3]
+    if not ok or arr.dtype != np.float32:
+        raise ValueError(f"a store is (nb,T,T,T) or (C,nb,T,T,T) float32, "
+                         f"got {arr.shape} {arr.dtype}")
+    return torch.from_numpy(np.ascontiguousarray(arr).copy()).to(resolve_device(device))
+
+
+def store_to_numpy(store: torch.Tensor) -> np.ndarray:
+    """A copy of a block store (any device) as a numpy array."""
+    if store.ndim not in (4, 5):
+        raise ValueError(f"a store is (nb,T,T,T) or (C,nb,T,T,T), "
+                         f"got {tuple(store.shape)}")
+    return store.detach().cpu().numpy().copy()
+
+
+def weights_from_numpy(weights: np.ndarray, device="cuda") -> torch.Tensor:
+    """(2g+1)³ f32 tap weights."""
+    arr = np.asarray(weights)
+    s = arr.shape[0] if arr.ndim == 3 else 0
+    if arr.shape != (s, s, s) or s % 2 == 0 or arr.dtype != np.float32:
+        raise ValueError(f"weights must be (2g+1,)*3 float32, got {arr.shape} {arr.dtype}")
+    return torch.from_numpy(arr.copy()).to(resolve_device(device))
