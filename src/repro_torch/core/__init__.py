@@ -13,8 +13,9 @@ from .layout import (  # noqa: F401
 )
 from .neighbors import (  # noqa: F401
     FACE_COLS, OFFSETS_FACE, OFFSETS_FULL, SELF_COL, block_kind_of,
-    boundary_face_table, boundary_face_table_device, neighbor_table,
-    neighbor_table_device,
+    boundary_face_table, boundary_face_table_device, extended_neighbor_table,
+    extended_neighbor_table_device, neighbor_table, neighbor_table_device,
+    ring_perms, shell_block_count, shell_block_index,
 )
 from .orderings import (  # noqa: F401
     COLUMN_MAJOR, HILBERT, MORTON, ROW_MAJOR, OrderingSpec, block_index_3d,

@@ -22,6 +22,8 @@ __all__ = [
     "OFFSETS_FULL", "OFFSETS_FACE", "FACE_COLS", "SELF_COL",
     "block_kind_of", "neighbor_table", "neighbor_table_device",
     "boundary_face_table", "boundary_face_table_device",
+    "shell_block_count", "shell_block_index", "extended_neighbor_table",
+    "extended_neighbor_table_device", "ring_perms",
 ]
 
 OFFSETS_FULL = tuple((a - 1, b - 1, c - 1)
@@ -137,3 +139,86 @@ def boundary_face_table_device(spec: OrderingSpec | str, nt: int,
     kind = block_kind_of(spec)
     return device_constant(("bndtab", kind, nt),
                            lambda: boundary_face_table(kind, nt), device)
+
+
+def shell_block_count(nt: int) -> int:
+    """Blocks in the one-block-thick shell around an nt³ core grid."""
+    return (nt + 2) ** 3 - nt ** 3
+
+
+@functools.lru_cache(maxsize=128)
+def shell_block_index(nt: int) -> np.ndarray:
+    """Extended-grid block coords -> shell enumeration id (core = -1).
+
+    The distributed pipeline (stencil/halo.py) appends the exchanged halo
+    as *shell blocks* after the nt³ core store: a block at extended
+    coords ``(bk, bi, bj) ∈ [-1, nt]³`` outside the core gets id
+    ``shell_block_index(nt)[bk+1, bi+1, bj+1]`` (row-major enumeration of
+    the shell), and lives at store row ``nt³ + id``. Core coords map to
+    -1 — core rows are addressed by the block curve's own path positions.
+    """
+    e = nt + 2
+    kk, ii, jj = np.meshgrid(*(np.arange(e),) * 3, indexing="ij")
+    core = ((kk >= 1) & (kk <= nt) & (ii >= 1) & (ii <= nt)
+            & (jj >= 1) & (jj <= nt))
+    idx = np.full((e, e, e), -1, dtype=np.int32)
+    idx[~core] = np.arange(shell_block_count(nt), dtype=np.int32)
+    idx.setflags(write=False)
+    return idx
+
+
+@functools.lru_cache(maxsize=128)
+def extended_neighbor_table(spec: OrderingSpec | str, nt: int) -> np.ndarray:
+    """(nt³, 27) int32 neighbour table over the core+shell extended store.
+
+    Row ``t`` (the core block the curve visits at path position ``t``)
+    holds, per OFFSETS_FULL column, either the path position of a core
+    neighbour or ``nt³ + shell_id`` of the shell block that carries the
+    exchanged halo in that direction — the neighbour operand of the
+    distributed fused step (stencil/halo.py). Column :data:`SELF_COL` is
+    ``t`` itself, as in :func:`neighbor_table`.
+    """
+    kind = block_kind_of(spec)
+    bo = block_order(kind, nt)  # (nb, 3): path pos -> block coords
+    nb = nt ** 3
+    lin = bo[:, 0] * nt * nt + bo[:, 1] * nt + bo[:, 2]
+    lin_to_path = np.empty(nb, dtype=np.int64)
+    lin_to_path[lin] = np.arange(nb)
+    offs = np.asarray(OFFSETS_FULL, dtype=np.int64)  # (27, 3)
+    co = bo[:, None, :] + offs[None, :, :]           # (nb, 27, 3)
+    inside = ((co >= 0) & (co < nt)).all(axis=-1)
+    coc = np.clip(co, 0, nt - 1)
+    core_ids = lin_to_path[(coc[..., 0] * nt + coc[..., 1]) * nt + coc[..., 2]]
+    shell_ids = shell_block_index(nt)[co[..., 0] + 1, co[..., 1] + 1,
+                                      co[..., 2] + 1]
+    tab = np.where(inside, core_ids, nb + shell_ids).astype(np.int32)
+    tab.setflags(write=False)
+    return tab
+
+
+def extended_neighbor_table_device(spec: OrderingSpec | str, nt: int,
+                                   device="cuda"):
+    """Cached device-resident copy of :func:`extended_neighbor_table`."""
+    kind = block_kind_of(spec)
+    return device_constant(("extnbrtab", kind, nt),
+                           lambda: extended_neighbor_table(kind, nt), device)
+
+
+def ring_perms(n: int, periodic: bool = True
+               ) -> tuple[list[tuple[int, int]], list[tuple[int, int]]]:
+    """(forward, backward) ``(source, destination)`` pairs for a ring of n
+    shards along one mesh axis: shard ``i``'s +axis neighbour is
+    ``i+1 mod n``.
+
+    ``periodic=False`` is the clamped-boundary ring: the wrapping pairs
+    ``(n-1, 0)`` / ``(0, n-1)`` are absent, so no bytes cross a clamped
+    domain face — a shard with no source receives zeros
+    (stencil/domain.StencilMesh.shift) and stencil/halo.exchange_shell
+    substitutes boundary values there instead.
+    """
+    if not periodic:
+        return ([(i, i + 1) for i in range(n - 1)],
+                [(i, i - 1) for i in range(1, n)])
+    fwd = [(i, (i + 1) % n) for i in range(n)]
+    bwd = [(i, (i - 1) % n) for i in range(n)]
+    return fwd, bwd

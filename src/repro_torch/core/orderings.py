@@ -147,6 +147,10 @@ def rmo_to_path(spec: OrderingSpec, M: int) -> np.ndarray:
     """p: row-major index -> path position. int32 array of length M³."""
     m = _check_pow2(M)
     _check_int32(M ** 3)
+    if spec.kind == "hybrid":
+        p = _hybrid_index(spec, M).astype(np.int32)
+        p.setflags(write=False)
+        return p
     kk, ii, jj = np.meshgrid(
         np.arange(M, dtype=np.uint64),
         np.arange(M, dtype=np.uint64),
@@ -159,19 +163,33 @@ def rmo_to_path(spec: OrderingSpec, M: int) -> np.ndarray:
     elif spec.kind == "morton":
         r = m if spec.level is None else spec.level
         p = morton_encode3_level(kk, ii, jj, m, r)
-    elif spec.kind == "hybrid":
-        T = spec.tile
-        if T is None or M % T:
-            raise ValueError(f"tile {T} must divide M={M}")
-        nt = M // T
-        outer_idx = _flat_index(spec.outer, kk // T, ii // T, jj // T, nt)
-        inner_idx = _flat_index(spec.inner, kk % T, ii % T, jj % T, T)
-        p = outer_idx * np.uint64(T * T * T) + inner_idx
     else:  # pragma: no cover
         raise ValueError(spec.kind)
     p = p.astype(np.int32)
     p.setflags(write=False)
     return p
+
+
+def _grid_index(kind: str, n: int) -> np.ndarray:
+    """(n, n, n) path index of every cell of an n³ grid under ``kind``."""
+    c = np.arange(n, dtype=np.uint64)
+    k, i, j = np.meshgrid(c, c, c, indexing="ij")
+    return _flat_index(kind, k.ravel(), i.ravel(), j.ravel(), n).reshape(n, n, n)
+
+
+def _hybrid_index(spec: OrderingSpec, M: int) -> np.ndarray:
+    """p for a hybrid ordering: the ``outer`` index of a cell's T³ tile
+    times T³ plus the ``inner`` index within the tile, each computed once
+    on its own grid (nt³ tiles, T³ cells) and broadcast over the
+    (k-tile, k, i-tile, i, j-tile, j) axes of the row-major cube."""
+    T = spec.tile
+    if T is None or M % T:
+        raise ValueError(f"tile {T} must divide M={M}")
+    outer = _grid_index(spec.outer, M // T)
+    inner = _grid_index(spec.inner, T)
+    p = (outer[:, None, :, None, :, None] * np.uint64(T * T * T)
+         + inner[None, :, None, :, None, :])
+    return p.reshape(-1)
 
 
 @functools.lru_cache(maxsize=128)

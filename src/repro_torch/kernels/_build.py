@@ -15,6 +15,11 @@ report.
 Importing this module runs nothing: the compiler is looked for only when
 a kernel is first needed, so the CPU tests import it on machines without
 nvcc.
+
+:func:`launch` runs one kernel's C entry point on the current stream,
+raises on the error code it returns, and adds one to the kernel's count
+in :data:`LAUNCHES` — the port's one launch counter, shared by every
+wrapper.
 """
 
 from __future__ import annotations
@@ -27,11 +32,14 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "SOURCES", "build", "library", "nvcc_path"]
+import torch
+
+__all__ = ["LAUNCHES", "NVCC_FLAGS", "SOURCES", "build", "launch", "library",
+           "nvcc_path", "reset_launches"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("stencil3d",)
+SOURCES = ("stencil3d", "sfc_gather")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-prec-div=true", "-prec-sqrt=true", "-ftz=false",
@@ -39,6 +47,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+
+# Kernel launches per wrapper since the last reset_launches(). A wrapper
+# adds one where it launches its kernel and nowhere else.
+LAUNCHES = {"stencil_step_fused": 0, "stencil_sum_resident": 0,
+            "stencil_sum_blocks": 0, "gather_rows": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def nvcc_path() -> str:
@@ -108,5 +126,21 @@ def library(name: str) -> ctypes.CDLL:
         if lib is None:
             build((name,))
             lib = ctypes.CDLL(str(_lib_path(name)))
+            lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.repro_cuda_error_string.restype = ctypes.c_char_p
             _LIBS[name] = lib
         return lib
+
+
+def launch(lib: ctypes.CDLL, name: str, fn, device: torch.device, *args) -> None:
+    """Call the C entry point ``fn(*args, stream)`` of ``lib`` on the
+    current stream of ``device``; raise on the CUDA error it returns (a
+    refused launch never runs, and a synchronize would not report it),
+    else count the launch under ``name``."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err:
+        msg = lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+    LAUNCHES[name] += 1

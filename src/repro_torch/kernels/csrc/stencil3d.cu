@@ -195,8 +195,8 @@ template <int RULE, int G>
 __global__ void __launch_bounds__(THREADS)
 fused_kernel(const float* __restrict__ store, float* __restrict__ out,
              const float* __restrict__ weights, const int* __restrict__ nbr,
-             const int* __restrict__ bnd, int nb, int nb_src, int T, int g_rt,
-             int S, Bc bc) {
+             const int* __restrict__ bnd, int nb, int nb_src, int out_nb,
+             int T, int g_rt, int S, Bc bc) {
   constexpr int C = channels_of(RULE);
   extern __shared__ float smem[];
   __shared__ int s_nbr[27];
@@ -280,7 +280,7 @@ fused_kernel(const float* __restrict__ store, float* __restrict__ out,
 
   for (int idx = threadIdx.x; idx < C * T3; idx += blockDim.x) {
     const int c = idx / T3;
-    out[(static_cast<int64_t>(c) * nb + b) * T3 + (idx - c * T3)] = cur[idx];
+    out[(static_cast<int64_t>(c) * out_nb + b) * T3 + (idx - c * T3)] = cur[idx];
   }
 }
 
@@ -308,7 +308,8 @@ halo_sum_kernel(const float* __restrict__ blocks, float* __restrict__ out,
 template <int RULE, int G>
 cudaError_t launch_fused(const float* store, float* out, const float* w,
                          const int* nbr, const int* bnd, int nb, int nb_src,
-                         int T, int g, int S, Bc bc, cudaStream_t stream) {
+                         int out_nb, int T, int g, int S, Bc bc,
+                         cudaStream_t stream) {
   const int E0 = T + 2 * S * g;
   const size_t smem = sizeof(float) * 2 * channels_of(RULE) *
                       static_cast<size_t>(E0) * E0 * E0;
@@ -316,22 +317,26 @@ cudaError_t launch_fused(const float* store, float* out, const float* w,
       fused_kernel<RULE, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  fused_kernel<RULE, G><<<nb, THREADS, smem, stream>>>(store, out, w, nbr, bnd,
-                                                      nb, nb_src, T, g, S, bc);
+  fused_kernel<RULE, G><<<nb, THREADS, smem, stream>>>(
+      store, out, w, nbr, bnd, nb, nb_src, out_nb, T, g, S, bc);
   return cudaGetLastError();
 }
 
 template <int RULE>
 cudaError_t dispatch_g(const float* store, float* out, const float* w,
                        const int* nbr, const int* bnd, int nb, int nb_src,
-                       int T, int g, int S, Bc bc, cudaStream_t stream) {
+                       int out_nb, int T, int g, int S, Bc bc,
+                       cudaStream_t stream) {
   switch (g) {
     case 1:
-      return launch_fused<RULE, 1>(store, out, w, nbr, bnd, nb, nb_src, T, g, S, bc, stream);
+      return launch_fused<RULE, 1>(store, out, w, nbr, bnd, nb, nb_src, out_nb,
+                                   T, g, S, bc, stream);
     case 2:
-      return launch_fused<RULE, 2>(store, out, w, nbr, bnd, nb, nb_src, T, g, S, bc, stream);
+      return launch_fused<RULE, 2>(store, out, w, nbr, bnd, nb, nb_src, out_nb,
+                                   T, g, S, bc, stream);
     default:
-      return launch_fused<RULE, 0>(store, out, w, nbr, bnd, nb, nb_src, T, g, S, bc, stream);
+      return launch_fused<RULE, 0>(store, out, w, nbr, bnd, nb, nb_src, out_nb,
+                                   T, g, S, bc, stream);
   }
 }
 
@@ -353,11 +358,14 @@ cudaError_t launch_halo_sum(const float* blocks, float* out, const float* w,
 extern "C" {
 
 // S fused timesteps: store f32 (C, nb_src, T,T,T) -> out f32 (C, nb, T,T,T)
-// (C = 2 for wave, else 1); nbr int32 (nb, 27); bnd int32 (nb, 6) or null
-// when every axis is periodic; bc_* per axis k, i, j.
+// (C = 2 for wave, else 1), whose channels lie out_nb >= nb blocks apart
+// (out_nb > nb: the core of a larger, extended store); nbr int32 (nb, 27);
+// bnd int32 (nb, 6) or null when every axis is periodic; bc_* per axis
+// k, i, j.
 int repro_stencil_step_fused_f32(const void* store, void* out, const void* w,
                                  const void* nbr, const void* bnd, int nb,
-                                 int nb_src, int T, int g, int S, int rule,
+                                 int nb_src, int out_nb, int T, int g, int S,
+                                 int rule,
                                  int bc_k, int bc_i, int bc_j, float val_k,
                                  float val_i, float val_j, void* stream) {
   const Bc bc = {{bc_k, bc_i, bc_j}, {val_k, val_i, val_j}};
@@ -369,13 +377,17 @@ int repro_stencil_step_fused_f32(const void* store, void* out, const void* w,
   auto bt = static_cast<const int*>(bnd);
   switch (rule) {
     case RULE_GOL:
-      return dispatch_g<RULE_GOL>(s, o, wp, nt, bt, nb, nb_src, T, g, S, bc, st);
+      return dispatch_g<RULE_GOL>(s, o, wp, nt, bt, nb, nb_src, out_nb, T, g,
+                                  S, bc, st);
     case RULE_JACOBI:
-      return dispatch_g<RULE_JACOBI>(s, o, wp, nt, bt, nb, nb_src, T, g, S, bc, st);
+      return dispatch_g<RULE_JACOBI>(s, o, wp, nt, bt, nb, nb_src, out_nb, T,
+                                     g, S, bc, st);
     case RULE_IDENTITY:
-      return dispatch_g<RULE_IDENTITY>(s, o, wp, nt, bt, nb, nb_src, T, g, S, bc, st);
+      return dispatch_g<RULE_IDENTITY>(s, o, wp, nt, bt, nb, nb_src, out_nb, T,
+                                       g, S, bc, st);
     case RULE_WAVE:
-      return dispatch_g<RULE_WAVE>(s, o, wp, nt, bt, nb, nb_src, T, g, S, bc, st);
+      return dispatch_g<RULE_WAVE>(s, o, wp, nt, bt, nb, nb_src, out_nb, T, g,
+                                   S, bc, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -390,7 +402,7 @@ int repro_stencil_sum_resident_f32(const void* store, void* out, const void* w,
   return dispatch_g<RULE_IDENTITY>(
       static_cast<const float*>(store), static_cast<float*>(out),
       static_cast<const float*>(w), static_cast<const int*>(nbr), nullptr, nb,
-      nb, T, g, 1, bc, static_cast<cudaStream_t>(stream));
+      nb, nb, T, g, 1, bc, static_cast<cudaStream_t>(stream));
 }
 
 // Repack form: blocks (nb, T+2g, T+2g, T+2g) -> out (nb, T,T,T).

@@ -1,23 +1,33 @@
-"""Public stencil operations around the kernels (repack path).
+"""Public operations around the kernels: the repack step and the face
+pack primitive.
 
-The torch counterparts of ``repro.kernels.ops.uniform_weights`` and
-``gol3d_step``. The device decides the path: on CUDA the tap sum runs
-through the ``stencil_sum_blocks`` kernel, on the CPU through its plain
-version; the rule runs as torch elementwise code on both.
+The torch counterparts of ``repro.kernels.ops.uniform_weights``,
+``gol3d_step``, ``sfc_gather_take``, ``pack_surface`` and
+``unpack_surface``. The device decides the path: on CUDA the tap sum runs
+through the ``stencil_sum_blocks`` kernel and the gather through the
+``gather_rows`` kernel; on the CPU through their plain versions (the
+gather is then ``index_select`` along the last axis). The rule and the
+element selection after the row gather run as torch code on both.
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
 
 from repro_torch.core.boundary import PERIODIC
 from repro_torch.core.layout import blockize_with_halo, device_constant, unblockize
+from repro_torch.core.orderings import OrderingSpec
+from repro_torch.core.surfaces import surface_path_indices
 
 from . import ref
+from .sfc_gather import gather_rows
 from .stencil3d import stencil_sum_blocks
 
-__all__ = ["gol3d_step", "uniform_weights"]
+__all__ = ["gol3d_step", "pack_surface", "sfc_gather_take", "uniform_weights",
+           "unpack_surface"]
 
 
 def _build_uniform_weights(g: int) -> np.ndarray:
@@ -44,3 +54,138 @@ def gol3d_step(cube: torch.Tensor, *, g: int, T: int = 8,
     centre = blocks[:, g:g + T, g:g + T, g:g + T]
     nxt = ref.gol_rule_ref(centre, neigh, g)
     return unblockize(nxt, M, kind=block_kind)
+
+
+def _surface_idx_device(spec: OrderingSpec, M: int, g: int, face: str,
+                        device="cuda") -> torch.Tensor:
+    """Cached device copy of a face's path-index list (int64, the index
+    type of ``index_copy``)."""
+    return device_constant(
+        ("surfidx", spec, M, g, face),
+        lambda: surface_path_indices(spec, M, g, face).astype(np.int64), device)
+
+
+_ROW_PLANS: dict = {}
+_ROW_PLANS_CAP = 256
+# Same contract as layout._DEVICE_CONSTANTS_LOCK: every read-modify-write
+# of the LRU dict holds the lock.
+_ROW_PLANS_LOCK = threading.RLock()
+
+
+def _row_plan(idx: np.ndarray, line: int, plan_key=None):
+    """(unique rows covering idx, per-element position) — cached by key.
+
+    The np.unique/searchsorted plan depends only on (idx, line); callers
+    with a stable idx provenance (pack_surface: one face of one ordering)
+    pass ``plan_key`` so repeated packs of the same face skip the O(|idx|
+    log |idx|) host work. LRU-capped and lock-guarded like
+    layout.device_constant; concurrent misses may both compute the plan
+    (pure — benign), the dict is only touched under the lock.
+    """
+    key = None if plan_key is None else (plan_key, line)
+    if key is not None:
+        with _ROW_PLANS_LOCK:
+            hit = _ROW_PLANS.get(key)
+            if hit is not None:
+                _ROW_PLANS[key] = _ROW_PLANS.pop(key)  # move-to-end
+                return hit
+    idx = np.asarray(idx)
+    rows = np.unique(idx // line).astype(np.int32)
+    pos = (np.searchsorted(rows, idx // line) * line + idx % line).astype(np.int32)
+    rows.setflags(write=False)
+    pos.setflags(write=False)
+    if key is not None:
+        with _ROW_PLANS_LOCK:
+            while len(_ROW_PLANS) >= _ROW_PLANS_CAP:
+                _ROW_PLANS.pop(next(iter(_ROW_PLANS)))
+            _ROW_PLANS[key] = (rows, pos)
+    return rows, pos
+
+
+def _table(key, build, device) -> torch.Tensor:
+    """A device copy of ``build()``: cached when the caller named it."""
+    if key is None:
+        return torch.from_numpy(np.array(build())).to(device)
+    return device_constant(key, build, device)
+
+
+def sfc_gather_take(data: torch.Tensor, idx: np.ndarray, *, line: int = 64,
+                    plan_key=None) -> torch.Tensor:
+    """``data[..., idx]`` for a flat ``(n,)`` array or a stacked ``(C, n)``
+    store, bit for bit.
+
+    On the card: fetch the unique ``line``-sized rows covering ``idx``
+    with the ``gather_rows`` kernel (one launch for every channel: row
+    ``c·(channel stride)/line + row`` of the store), then select the
+    elements. The row count is the device-memory traffic of the pack —
+    SFC layouts need fewer rows (paper Figs 11/15 re-expressed). On the
+    CPU: ``index_select`` along the last axis. ``plan_key`` (hashable,
+    identifying idx's provenance) memoises the row plan and its device
+    tables across calls.
+    """
+    idx = np.asarray(idx)
+    if data.device.type == "cpu":
+        ix = _table(None if plan_key is None else ("takeidx", plan_key),
+                    lambda: idx, data.device)
+        return data.index_select(-1, ix)
+    return _row_take(data, idx, line, plan_key)
+
+
+def _row_take(data: torch.Tensor, idx: np.ndarray, line: int,
+              plan_key) -> torch.Tensor:
+    """The card's route of :func:`sfc_gather_take`: whole rows through
+    ``gather_rows``, then the elements. On a CPU tensor ``gather_rows``
+    runs its plain version, which is how the tests check this route's
+    index arithmetic."""
+    dev = data.device
+    if data.ndim not in (1, 2):
+        raise ValueError(f"data must be (n,) or (C, n), got {tuple(data.shape)}")
+    n = data.shape[-1]
+    if n % line:
+        raise ValueError(f"data length {n} is not a multiple of line={line}")
+    rows, pos = _row_plan(idx, line, plan_key)
+    flat = data if data.ndim == 2 else data[None]
+    C = flat.shape[0]
+    if flat.stride(-1) != 1 or flat.stride(0) % line or \
+            (C > 1 and flat.stride(0) < n):
+        flat = flat.contiguous()
+    chan_rows = flat.stride(0) // line if C > 1 else n // line
+    src = flat.as_strided(((C - 1) * chan_rows + n // line, line), (line, 1))
+    pkey = None if plan_key is None else ("rowplan", plan_key, line)
+    rows_all = _table(
+        None if pkey is None else pkey + ("rows", C, chan_rows),
+        lambda: (np.arange(C, dtype=np.int64)[:, None] * chan_rows
+                 + rows[None, :]).astype(np.int32).ravel(), dev)
+    got = gather_rows(src, rows_all).view(C, -1)
+    out = got.index_select(-1, _table(None if pkey is None else pkey + ("pos",),
+                                      lambda: pos, dev))
+    return out if data.ndim == 2 else out[0]
+
+
+def pack_surface(data_path: torch.Tensor, spec: OrderingSpec, M: int, g: int,
+                 face: str, *, line: int = 64) -> torch.Tensor:
+    """Pack one face of a path-ordered cube into a contiguous buffer.
+
+    ``data_path`` is the (M³,) cube in ``spec`` order (apply_ordering) —
+    or the stacked multi-field ``(C, M³)`` state (DESIGN.md §9), packed
+    along the last axis so one call moves every channel's face. Buffer
+    order is curve-visit order p_t (paper §3.2). The row plan is cached
+    on (spec, M, g, face, line) across calls.
+
+    ``g`` is the face *width* — the communication-avoiding distributed
+    pipeline packs deep faces of width S·g (stencil/halo.py), straight
+    from the resident block store by passing ``layout.store_spec(kind,
+    T)`` as the spec (the store is path-ordered state under that hybrid
+    ordering).
+    """
+    idx = surface_path_indices(spec, M, g, face)
+    return sfc_gather_take(data_path, idx, line=line,
+                           plan_key=(spec, M, g, face))
+
+
+def unpack_surface(data_path: torch.Tensor, buf: torch.Tensor,
+                   spec: OrderingSpec, M: int, g: int, face: str) -> torch.Tensor:
+    """Inverse of pack_surface: a copy of ``data_path`` with the buffer
+    scattered back into the face (the input is not modified)."""
+    idx = _surface_idx_device(spec, M, g, face, data_path.device)
+    return data_path.index_copy(-1, idx, buf)

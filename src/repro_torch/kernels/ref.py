@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the stencil kernels.
+"""Plain PyTorch versions of the stencil and row-gather kernels.
 
 The torch counterparts of ``repro.kernels.ref``. On a CPU tensor the
 kernel wrappers (kernels/stencil3d.py) run these; on the card
@@ -17,7 +17,7 @@ from .rules import apply_window_bc, get_rule
 
 __all__ = ["stencil_sum_ref", "gol_rule_ref", "gol3d_step_ref",
            "assemble_halo_ref", "stencil_sum_resident_ref",
-           "stencil_fused_ref", "fields_step_ref"]
+           "stencil_fused_ref", "fields_step_ref", "gather_rows_ref"]
 
 
 def stencil_sum_ref(blocks: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -162,3 +162,8 @@ def gol3d_step_ref(cube: torch.Tensor, g: int, bc=PERIODIC) -> torch.Tensor:
                 total = total + xp[dk:dk + M, di:di + M, dj:dj + M].to(torch.float32)
     neigh = total - cube.to(torch.float32)  # exclude centre
     return gol_rule_ref(cube, neigh, g)
+
+
+def gather_rows_ref(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """src: (N, L); idx: (R,) int32 -> (R, L), ``src[idx]``."""
+    return src[idx]

@@ -13,7 +13,8 @@ minus ``interpret``, plus ``out=``:
 The kernels live in ``csrc/stencil3d.cu`` (one thread block per output
 block, the window in shared memory). The device decides the path: a CUDA
 tensor launches the kernel or raises, a CPU tensor runs the plain version
-in kernels/ref.py. Each launch adds one to ``LAUNCHES[name]``. Stores are
+in kernels/ref.py. Each launch adds one to ``LAUNCHES[name]`` (the
+port's one counter, kernels/_build.py). Stores are
 f32 only; every other dtype raises. Outputs are allocated here (or passed
 as ``out=``, which must not share memory with the input) and kernels run
 on the current stream without synchronising.
@@ -36,9 +37,7 @@ __all__ = ["stencil_sum_blocks", "stencil_sum_resident", "stencil_step_fused",
            "LAUNCHES", "reset_launches", "SMEM_LIMIT_BYTES",
            "fused_smem_bytes", "halo_smem_bytes"]
 
-# Kernel launches per wrapper since the last reset_launches().
-LAUNCHES = {"stencil_step_fused": 0, "stencil_sum_resident": 0,
-            "stencil_sum_blocks": 0}
+LAUNCHES, reset_launches = _build.LAUNCHES, _build.reset_launches
 
 # Shared memory one thread block may use on an H100 (dynamic + static).
 SMEM_LIMIT_BYTES = 232_448
@@ -47,11 +46,6 @@ _TABLE_SMEM_BYTES = 4 * (27 + 6)
 
 _RULE_IDS = {"gol": 0, "jacobi": 1, "identity": 2, "wave": 3}
 _BC_IDS = {"periodic": 0, "dirichlet": 1, "neumann0": 2}
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def fused_smem_bytes(T: int, g: int, S: int, *, fields: int = 1,
@@ -72,15 +66,13 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library("stencil3d")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.repro_stencil_step_fused_f32.argtypes = [
-        p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, f, f, p]
+        p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, f, f, f, p]
     lib.repro_stencil_sum_resident_f32.argtypes = [p, p, p, p, i, i, i, p]
     lib.repro_stencil_sum_blocks_f32.argtypes = [p, p, p, i, i, i, p]
     for fn in (lib.repro_stencil_step_fused_f32,
                lib.repro_stencil_sum_resident_f32,
                lib.repro_stencil_sum_blocks_f32):
         fn.restype = ctypes.c_int
-    lib.repro_cuda_error_string.argtypes = [i]
-    lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -122,6 +114,27 @@ def _output(out: torch.Tensor | None, shape: tuple, src: torch.Tensor,
     return out
 
 
+def _core_output(out: torch.Tensor | None, shape: tuple,
+                 store: torch.Tensor) -> tuple[torch.Tensor | None, int]:
+    """Check the fused step's ``out`` and return it with its channel
+    stride in blocks. A stacked ``(C, nb, T, T, T)`` out may be the core
+    of a larger store (``ext[:, :nb]``): each channel contiguous, the
+    channels ``out_nb >= nb`` blocks apart. Any other out is contiguous."""
+    nb, T3 = shape[-4], shape[-1] ** 3
+    if out is None or out.is_contiguous() or out.ndim != 5:
+        return _output(out, shape, store, "store"), nb
+    if tuple(out.shape) != shape or out.dtype != torch.float32 \
+            or out.device != store.device:
+        _check(out, "out", shape, torch.float32, store.device)
+    out_nb, rem = divmod(out.stride(0), T3)
+    if rem or out_nb < nb or not out[0].is_contiguous():
+        raise ValueError("out must be contiguous, or the core (C, nb, T, T, T) "
+                         "of a larger contiguous store")
+    if out.untyped_storage().data_ptr() == store.untyped_storage().data_ptr():
+        raise ValueError("out must not share memory with store")
+    return out, out_nb
+
+
 def _emit(result: torch.Tensor, out: torch.Tensor | None) -> torch.Tensor:
     """The plain version's result, written into ``out`` when given."""
     if out is None:
@@ -131,13 +144,7 @@ def _emit(result: torch.Tensor, out: torch.Tensor | None) -> torch.Tensor:
 
 
 def _launch(name: str, fn, device: torch.device, *args) -> None:
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
-    if err:
-        msg = _lib().repro_cuda_error_string(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
-    LAUNCHES[name] += 1
+    _build.launch(_lib(), name, fn, device, *args)
 
 
 def stencil_step_fused(store: torch.Tensor, weights: torch.Tensor,
@@ -158,7 +165,8 @@ def stencil_step_fused(store: torch.Tensor, weights: torch.Tensor,
     rule:    "gol" | "jacobi" | "identity" | "wave" (kernels/rules.py)
     bc:      boundary contract (core.boundary), uniform or mixed
     out:     optional (C,) nb, T, T, T f32 output, not sharing memory
-             with ``store``
+             with ``store``: contiguous, or for a stacked store the core
+             ``ext[:, :nb]`` of a larger contiguous store
     returns: the store's computed core after S timesteps, f32
     """
     r = get_rule(rule)
@@ -196,7 +204,7 @@ def stencil_step_fused(store: torch.Tensor, weights: torch.Tensor,
     _check_smem(fused_smem_bytes(T, g, S, fields=C),
                 f"fused step T={T}, g={g}, S={S}, C={C}")
     out_shape = (C, nb, T, T, T) if multi else (nb, T, T, T)
-    out = _output(out, out_shape, store, "store")
+    out, out_nb = _core_output(out, out_shape, store)
     if dev.type == "cpu":
         return _emit(ref.stencil_fused_ref(store, weights, nbr, S=S, rule=r,
                                            bc=bc, bnd=bnd), out)
@@ -209,7 +217,7 @@ def stencil_step_fused(store: torch.Tensor, weights: torch.Tensor,
     _launch("stencil_step_fused", _lib().repro_stencil_step_fused_f32, dev,
             store.data_ptr(), out.data_ptr(), weights.data_ptr(),
             nbr.data_ptr(), bnd.data_ptr() if bc.clamped else None,
-            nb, nb_src, T, g, S, _RULE_IDS[r.name],
+            nb, nb_src, out_nb, T, g, S, _RULE_IDS[r.name],
             *(_BC_IDS[a.kind] for a in axes), *(float(a.value) for a in axes))
     return out
 

@@ -9,7 +9,10 @@ execution modes (DESIGN.md §3):
 - fused *resident* (``run_resident``): blockize once, run K steps on the
   curve-ordered store (``stencil_step_fused``, S timesteps per launch),
   unblockize once. ``substeps=0`` lets ``ResidentPipeline.plan()`` pick
-  (T, S).
+  (T, S);
+- *distributed* (``run_distributed``): the cube decomposed over a mesh
+  of shards, one deep halo exchange per S fused substeps
+  (``DistributedPipeline``, DESIGN.md §7).
 """
 
 from __future__ import annotations
@@ -22,22 +25,15 @@ import torch
 from repro_torch.core.boundary import PERIODIC, BoundarySpec, as_boundary
 from repro_torch.core.device import resolve_device
 from repro_torch.core.layout import apply_ordering, undo_ordering
-from repro_torch.core.neighbors import block_kind_of
 from repro_torch.core.orderings import ROW_MAJOR, OrderingSpec
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
 
-from .pipeline import ResidentPipeline
+from .domain import Decomposition3D, StencilMesh
+from .halo import stencil_block_kind
+from .pipeline import DistributedPipeline, ResidentPipeline
 
 __all__ = ["Gol3dConfig", "Gol3d", "stencil_block_kind"]
-
-
-def stencil_block_kind(spec: OrderingSpec) -> str:
-    """Block-grid curve the stencil pipelines use for an element ordering:
-    the ordering's own curve when it has one, else Morton (the pipelines
-    are SFC-blocked even when the state ordering is row-major)."""
-    kind = block_kind_of(spec)
-    return kind if kind in ("morton", "hilbert") else "morton"
 
 
 @dataclass(frozen=True)
@@ -118,6 +114,33 @@ class Gol3d:
         state for all n_steps; layout conversions happen once at each
         end. Bit-identical to ``run`` (same block kind, same rule)."""
         cube = self.resident_pipeline().run(self.cube, n_steps)
+        self.state_path = apply_ordering(cube, self.cfg.ordering)
+        return self.state_path
+
+    def distributed_pipeline(self, mesh: StencilMesh) -> DistributedPipeline:
+        """Communication-avoiding mesh pipeline over this app's layout.
+
+        Decomposes the cfg.M cube onto ``mesh`` (cubic power-of-2 local
+        blocks, Decomposition3D), threads ``cfg.substeps`` through as the
+        exchange depth S (``substeps=0`` delegates (T, S) to the
+        exchange-aware ``DistributedPipeline.plan``).
+        """
+        cfg = self.cfg
+        if mesh.device.type != self.device.type:
+            raise ValueError(f"mesh is on {mesh.device}, the app on {self.device}")
+        local = Decomposition3D(cfg.M, mesh.shape).check_local_pow2_cube()
+        if cfg.substeps == 0:
+            return DistributedPipeline.plan(mesh, cfg.ordering, local,
+                                            g=cfg.g, bc=cfg.bc)
+        T = min(cfg.block_T, local)
+        return DistributedPipeline(mesh=mesh, spec=cfg.ordering, M=local,
+                                   T=T, g=cfg.g, S=cfg.substeps, bc=cfg.bc)
+
+    def run_distributed(self, mesh: StencilMesh, n_steps: int) -> torch.Tensor:
+        """Shard the cube over the mesh, run K deep-exchange rounds, and
+        gather back into this app's path-ordered state. Bit-identical to
+        ``run``/``run_resident`` on one device (same rule, f32 state)."""
+        cube = self.distributed_pipeline(mesh).run_cube(self.cube, n_steps)
         self.state_path = apply_ordering(cube, self.cfg.ordering)
         return self.state_path
 

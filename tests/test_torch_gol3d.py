@@ -159,7 +159,8 @@ def test_substeps_zero_delegates_to_plan():
     assert torch.equal(app.run_resident(3), app.state_path)
 
 
-@pytest.mark.parametrize("name", ["CONFIG", "SMOKE", "CHIP_MAIN", "CHIP_REPACK"])
+@pytest.mark.parametrize("name", ["CONFIG", "SMOKE", "CHIP_MAIN", "CHIP_REPACK",
+                                  "CHIP_DISTRIBUTED"])
 def test_configs_fit_the_kernels(name):
     """Every named config runs on the fused kernel as given: S·g | T | M
     and the window fits in shared memory."""
