@@ -32,8 +32,10 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    equal ``reference_run(16)``; per shard ⌈16/4⌉ fused launches and six
    ``gather_rows`` launches a round), and the wave pipeline on 2×2×2
    under mixed(k=neumann0), K=8, S=2 (8 steps of ``fields_step_ref``);
-4. timings with CUDA events (median of repeats after a warm-up): each
-   kernel at its main-path shape beside its plain version, a single
+4. timings with CUDA events (median of repeats after a warm-up), and for
+   the µs-scale gather and pack calls their device time from a profiler
+   trace (CUDA events instead, and said so, when traces hold no device
+   events): each kernel at its main-path shape beside its plain version, a single
    PyTorch call that computes the same function where there is one
    (conv3d, TF32 off; index_select for the gather; yardsticks the port
    never calls) and the least time the card could take for the
@@ -165,23 +167,30 @@ def main() -> int:
             times.append(e0.elapsed_time(e1) / inner)
         return statistics.median(times)
 
-    def device_ms(fn, n=200):
-        """Device time per call of the kernels ``fn`` launches: the sum of
-        their durations in a profiler trace of ``n`` calls, over ``n``. For
-        a kernel shorter than the host's cost of launching it, CUDA events
-        around back-to-back calls measure the host instead."""
+    def device_ms(fn, n=200, tries=3):
+        """(ms, how): the device time per call of the kernels ``fn``
+        launches — the sum of their durations in a profiler trace of ``n``
+        calls, over ``n`` (how = "device"). For a kernel shorter than the
+        host's cost of launching it, CUDA events around back-to-back calls
+        measure the host instead. A trace can come back without device
+        events; after ``tries`` such traces the time is taken with CUDA
+        events around the ``n`` calls (how = "events", host cost included)."""
         from torch.profiler import ProfilerActivity, profile
 
         fn()
         sync()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            sync()
-        total = sum(e.self_device_time_total for e in prof.key_averages()
-                    if str(e.device_type).endswith("CUDA"))
-        check(total > 0, "the profiler recorded no device time")
-        return total / 1e3 / n
+        for _ in range(tries):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    fn()
+                sync()
+            total = sum(e.self_device_time_total for e in prof.key_averages()
+                        if str(e.device_type).endswith("CUDA"))
+            if total > 0:
+                return total / 1e3 / n, "device"
+        log(f"the profiler recorded no device time in {tries} traces; "
+            f"CUDA events around {n} calls instead")
+        return cuda_ms(fn, reps=3, inner=n), "events"
 
     def bound(nbytes, flops):
         t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
@@ -523,12 +532,13 @@ def main() -> int:
         b_ms, b_by = bound(2 * R * LINE * 4 + 4 * R, 0)
         # device time per launch (profiler); per call on the host's clock
         # (CUDA events around back-to-back calls), wrapper included
-        row = dict(name="gather_rows", ms=device_ms(gat),
-                   plain_ms=device_ms(plain), max_abs_err=err,
-                   bound_ms=b_ms, bound_by=b_by, library_ms=device_ms(lib))
-        log(f"gather_rows {face} h={S_D * G_MAIN}: {R} rows, device "
-            f"{row['ms']:.5f} ms (plain {row['plain_ms']:.5f}, index_select "
-            f"{row['library_ms']:.5f}, bound {b_ms:.5f} ms); per call "
+        (g_ms, g_how), (p_ms, p_how), (l_ms, l_how) = (
+            device_ms(fn) for fn in (gat, plain, lib))
+        row = dict(name="gather_rows", ms=g_ms, plain_ms=p_ms, max_abs_err=err,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=l_ms)
+        log(f"gather_rows {face} h={S_D * G_MAIN}: {R} rows, {g_how} "
+            f"{g_ms:.5f} ms (plain {p_how} {p_ms:.5f}, index_select {l_how} "
+            f"{l_ms:.5f}, bound {b_ms:.5f} ms); per call "
             f"{cuda_ms(gat, inner=100):.5f} ms (plain "
             f"{cuda_ms(plain, inner=100):.5f}, index_select "
             f"{cuda_ms(lib, inner=100):.5f})")
@@ -654,9 +664,10 @@ def main() -> int:
                 rows, _ = kops._row_plan(idx, LINE, (spec, M_D, g_p, face))
                 rs = run_stats(spec, M_D, g_p, face)
                 pk = lambda: kops.pack_surface(path, spec, M_D, g_p, face)
+                d_ms, how = device_ms(pk, n=50)
                 parts.append(f"{face} {len(rows)} rows {rs.n_runs} runs "
                              f"{cuda_ms(pk, inner=20):.4f} ms per call, "
-                             f"{device_ms(pk, n=50):.4f} ms device")
+                             f"{d_ms:.4f} ms {how}")
             log(f"pack {spec.name} g={g_p}: " + "; ".join(parts))
 
     sync()
