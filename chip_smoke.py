@@ -19,6 +19,16 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    ``gather_rows`` on the six deep faces (h ∈ {1, 2, 4}) of the M=256,
    T=8 block store under the four block curves, in f32, plus bf16, int32
    and a stacked (2, n) store — every comparison bit-exact (tolerance 0);
+   ``flash_attention_fwd`` at the prefill's shape (the folded GQA tensors
+   of B=4, S=2048: BH=60, D=64, bf16, causal, 128-blocks) under the
+   row-major, Morton and Hilbert schedules, on the JAX package's test
+   shapes (f32, causal and full, Sq < Sk), with Sq > Sk (rows with no
+   key), D=40 and 48-blocks, and one launch at S=32768, BH=15 (timed,
+   beside SDPA) whose last 256 rows must equal the plain version on those
+   queries (the diagonal is aligned to the end) — within one bf16 unit in
+   the last place
+   (|d| <= 1e-5 + 2^-7 |plain|) for bf16 and 1e-5 (relative and
+   absolute) for f32, and the largest difference between schedules;
 3. the main paths at full size (``repro_torch.configs.gol3d.CHIP_*``),
    each with the launch counts set to 0 just before and read just after:
    ``Gol3d.run_resident(16)`` at M=256, T=8, S=4 for the four orderings
@@ -32,6 +42,13 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    equal ``reference_run(16)``; per shard ⌈16/4⌉ fused launches and six
    ``gather_rows`` launches a round), and the wave pipeline on 2×2×2
    under mixed(k=neumann0), K=8, S=2 (8 steps of ``fields_step_ref``);
+   full-width ``smollm-360m`` (weights from a seeded ``torch.Generator``):
+   ``Model.prefill`` at B=4, S=2048 with ``use_flash_kernel`` (exactly
+   one ``flash_attention_fwd`` launch per layer; logits within 0.1 of the
+   same prefill through plain ``masked_sdpa``), then ``greedy_decode`` of
+   32 new tokens for 4 requests of 16-token prompts (no kernel launch;
+   4×32 tokens; decode's logits at the last prompt position within 0.1
+   of the prefill's, argmax agreement reported);
 4. timings with CUDA events (median of repeats after a warm-up), and for
    the µs-scale gather and pack calls their device time from a profiler
    trace (CUDA events instead, and said so, when traces hold no device
@@ -46,7 +63,13 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    distributed path per ordering and mesh, with its exchange (pack,
    shift and scatter) beside its fused kernels; and the paper's exchange
    question: rows fetched and ms per face when packing the six faces of
-   a path-ordered M=256 cube under each ordering.
+   a path-ordered M=256 cube under each ordering; the flash kernel per
+   schedule beside its plain version and SDPA (the folded tensors viewed
+   as (4, 15, S, D); a yardstick the port never calls), against the
+   bound of its operations at 989 TFLOP/s (bf16); prefill ms and tokens/s
+   with the kernel and with plain attention, decode ms per step and
+   tokens/s (median of 5 after a warm-up), and the kernel's share of the
+   prefill's device time (profiler).
 
 It prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
@@ -69,14 +92,17 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 SOURCES = {"stencil_step_fused": "src/repro_torch/kernels/csrc/stencil3d.cu",
            "stencil_sum_resident": "src/repro_torch/kernels/csrc/stencil3d.cu",
            "stencil_sum_blocks": "src/repro_torch/kernels/csrc/stencil3d.cu",
-           "gather_rows": "src/repro_torch/kernels/csrc/sfc_gather.cu"}
+           "gather_rows": "src/repro_torch/kernels/csrc/sfc_gather.cu",
+           "flash_attention_fwd": "src/repro_torch/kernels/csrc/flash_attn.cu"}
 REPLACES = {"stencil_step_fused": "src/repro/kernels/stencil3d.py:296",
             "stencil_sum_resident": "src/repro/kernels/stencil3d.py:212",
             "stencil_sum_blocks": "src/repro/kernels/stencil3d.py:114",
-            "gather_rows": "src/repro/kernels/sfc_gather.py:33"}
+            "gather_rows": "src/repro/kernels/sfc_gather.py:33",
+            "flash_attention_fwd": "src/repro/kernels/flash_attn.py:106"}
 BCS = ("periodic", "dirichlet", "neumann0", "mixed")
 FACES = ("k0", "k1", "i0", "i1", "j0", "j1")
 LINE = 64  # elements per gathered row (kops.sfc_gather_take's default)
@@ -84,6 +110,19 @@ LINE = 64  # elements per gathered row (kops.sfc_gather_take's default)
 # exchange_shell packs k0, k1, i0, i1, j0 and j1 once each, every channel
 # in one pack, under every boundary contract
 PACKS_PER_SHARD = 6
+FLASH_SCHEDULES = ("row_major", "morton", "hilbert")
+FLASH_BLOCK = 128  # gqa_attention's blocks (models/attention.py)
+# flash_attention_fwd against its plain version: f32 softmax attention in
+# both, dense against online and summed in another order, so f32 outputs
+# agree to 1e-5 (relative and absolute) and bf16 outputs, rounded once
+# from those f32 values, by at most one bf16 unit in the last place
+FLASH_F32_TOL = 1e-5
+FLASH_BF16_RTOL, FLASH_BF16_ATOL = 2.0 ** -7, 1e-5
+# smollm-360m logits (std about 0.6 with these random weights) of two
+# paths that round bf16 activations at other places: the flash kernel
+# against plain masked_sdpa (which rounds the probabilities to bf16), and
+# decode (f32 cache, one token a step) against prefill
+LM_LOGIT_TOL = 0.1
 
 
 def check(cond: bool, msg: str) -> None:
@@ -106,6 +145,7 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
+    from repro_torch.configs import smollm_360m as lm_sizes
     from repro_torch.configs.gol3d import (CHIP_DISTRIBUTED,
                                            CHIP_DISTRIBUTED_STEPS,
                                            CHIP_MAIN, CHIP_MAIN_STEPS,
@@ -116,12 +156,17 @@ def main() -> int:
                                   boundary_face_table_device, dirichlet,
                                   extended_neighbor_table_device, mixed,
                                   neighbor_table_device, store_spec)
+    from repro_torch.configs.registry import ShapeSpec, concrete_batch
     from repro_torch.core.surfaces import run_stats, surface_path_indices
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import stencil3d as K
     from repro_torch.kernels.ops import uniform_weights
+    from repro_torch.kernels.flash_attn import flash_attention_fwd
     from repro_torch.kernels.sfc_gather import gather_rows
+    from repro_torch.models import Model
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import greedy_decode
     from repro_torch.stencil.domain import make_stencil_mesh
     from repro_torch.stencil.gol3d import Gol3d
     from repro_torch.stencil.halo import (core_of, extended_store, fill_shells,
@@ -192,8 +237,8 @@ def main() -> int:
             f"CUDA events around {n} calls instead")
         return cuda_ms(fn, reps=3, inner=n), "events"
 
-    def bound(nbytes, flops):
-        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    def bound(nbytes, flops, peak=F32_FLOP_PER_S):
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / peak
         return (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations")
 
     # ---------------------------------------------------------------- set-up
@@ -338,6 +383,87 @@ def main() -> int:
     log(f"gather_rows vs plain at M={M_D}: {n_cmp} comparisons bit-equal "
         f"({time.perf_counter() - t0:.1f} s)")
 
+    # flash_attention_fwd against its plain version: the prefill's shape
+    # (the GQA-folded q, k, v of one smollm-360m layer at B=4, S=2048) under
+    # each schedule, the JAX package's test shapes, Sq > Sk, D=40, and one
+    # launch at S=32768
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def flash_err(got, want, what):
+        """max |got - want|, after checking it is within the tolerance of
+        got's dtype."""
+        g, w = got.float(), want.float()
+        if got.dtype == torch.bfloat16:
+            rtol, atol = FLASH_BF16_RTOL, FLASH_BF16_ATOL
+        else:
+            rtol = atol = FLASH_F32_TOL
+        d = (g - w).abs()
+        check(got.dtype == want.dtype and got.shape == want.shape
+              and bool(torch.isfinite(g).all())
+              and bool((d <= atol + rtol * w.abs()).all()),
+              f"flash_attention_fwd != plain: {what}: max |d| {d.max().item()}")
+        return d.max().item()
+
+    lm_cfg = dataclasses.replace(lm_sizes.CONFIG, use_flash_kernel=True)
+    B_P, S_P = lm_sizes.CHIP_PREFILL_BATCH, lm_sizes.CHIP_PREFILL_SEQ
+    H, KVH, HD = lm_cfg.n_heads, lm_cfg.n_kv_heads, lm_cfg.hd
+    fq, fk, fv = kops._fold_gqa(randn(B_P, H, S_P, HD, dtype=torch.bfloat16),
+                                randn(B_P, KVH, S_P, HD, dtype=torch.bfloat16),
+                                randn(B_P, KVH, S_P, HD, dtype=torch.bfloat16))
+    flash_want = ref.flash_attention_ref(fq, fk, fv)
+    by_sched, n_cmp, flash_main_err = {}, 0, 0.0
+    for sched in FLASH_SCHEDULES:
+        by_sched[sched] = flash_attention_fwd(fq, fk, fv, causal=True,
+                                              block_q=FLASH_BLOCK,
+                                              block_k=FLASH_BLOCK, schedule=sched)
+        err = flash_err(by_sched[sched], flash_want,
+                        f"{tuple(fq.shape)} bf16 {sched}")
+        flash_main_err = max(flash_main_err, err)
+        log(f"flash {tuple(fq.shape)} bf16 causal {sched}: max |d| {err:.3g}")
+        n_cmp += 1
+    sched_diff = max((a.float() - b.float()).abs().max().item()
+                     for a in by_sched.values() for b in by_sched.values())
+    cases = [((BH, Sq, Sk, D), causal, 16, 16, sched)
+             for BH, Sq, Sk, D in ((2, 64, 64, 16), (1, 128, 128, 32), (2, 32, 128, 16))
+             for causal in (True, False) for sched in FLASH_SCHEDULES]
+    cases += [((3, 128, 64, 64), True, 32, 16, "hilbert"),   # Sq > Sk
+              ((3, 96, 96, 40), True, 32, 48, "morton")]
+    for (BH, Sq, Sk, D), causal, bq, bk, sched in cases:
+        q, k, v = randn(BH, Sq, D), randn(BH, Sk, D), randn(BH, Sk, D)
+        got = flash_attention_fwd(q, k, v, causal=causal, block_q=bq, block_k=bk,
+                                  schedule=sched)
+        flash_err(got, ref.flash_attention_ref(q, k, v, causal=causal),
+                  f"{(BH, Sq, Sk, D)} f32 causal={causal} {bq}x{bk} {sched}")
+        if Sq > Sk and causal:
+            check(not bool(got[:, :Sq - Sk].any()), "rows with no key are not 0")
+        n_cmp += 1
+    L_S = lm_sizes.CHIP_LONG_SEQ
+    lq, lk, lv = (randn(H, L_S, HD, dtype=torch.bfloat16) for _ in range(3))
+    long_fn = lambda: flash_attention_fwd(lq, lk, lv, causal=True,
+                                          block_q=FLASH_BLOCK, block_k=FLASH_BLOCK,
+                                          schedule=lm_cfg.flash_schedule)
+    long_ms = cuda_ms(long_fn, reps=1, inner=1)
+    long_sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        lq[None], lk[None], lv[None], is_causal=True), reps=1, inner=1)
+    tail = long_fn()[:, -256:]
+    long_err = flash_err(tail, ref.flash_attention_ref(lq[:, -256:], lk, lv),
+                         f"S={L_S} BH={H}, last 256 rows")
+    long_ops = 4 * HD * H * L_S * (L_S + 1) // 2
+    long_bound, _ = bound(2 * 4 * H * L_S * HD, long_ops, BF16_FLOP_PER_S)
+    n_cmp += 1
+    sync()
+    log(f"flash_attention_fwd vs plain: {n_cmp} comparisons within tolerance; "
+        f"largest difference between schedules at {tuple(fq.shape)}: "
+        f"{sched_diff:.3g}; S={L_S} BH={H}: one launch {long_ms:.3f} ms "
+        f"(SDPA {long_sdpa_ms:.3f} ms, bound {long_bound:.3f} ms by "
+        f"operations), last 256 rows max |d| "
+        f"{long_err:.3g} ({time.perf_counter() - t0:.1f} s)")
+    del lq, lk, lv, tail
+
     # ----------------------------------------- main paths, launches counted
     main_launches = {name: 0 for name in K.LAUNCHES}
 
@@ -450,6 +576,50 @@ def main() -> int:
         f"mixed(k=neumann0) K=8 launches fused {counts['stencil_step_fused']} "
         f"gather {counts['gather_rows']}, equal to fields_step_ref")
 
+    # smollm-360m at full width: prefill with the flash kernel in every
+    # layer, then greedy decode (which runs no kernel: masked_sdpa over the
+    # cache), weights from a seeded generator
+    t1 = time.perf_counter()
+    lm = Model(lm_cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
+    plain_cfg = dataclasses.replace(lm_cfg, use_flash_kernel=False)
+    batch = concrete_batch(lm_cfg, ShapeSpec("chip_prefill", S_P, B_P, "prefill"),
+                           seed=0, device=dev)
+    logits, counts = counted(lambda: lm.prefill(batch))
+    check(counts == {**{n: 0 for n in counts}, "flash_attention_fwd": lm_cfg.n_layers},
+          f"prefill launches {counts}, want {lm_cfg.n_layers} flash_attention_fwd")
+    check(logits.shape == (B_P, lm_cfg.vocab) and bool(torch.isfinite(logits).all()),
+          "prefill logits not finite or misshapen")
+    plain_logits = tfm.prefill(lm.params(), batch, plain_cfg)
+    lm_err = (logits - plain_logits).abs().max().item()
+    check(lm_err <= LM_LOGIT_TOL, f"prefill: flash vs plain attention max |d| {lm_err}")
+    log(f"main {lm_cfg.name} prefill: B={B_P} S={S_P} launches "
+        f"{counts['flash_attention_fwd']} flash_attention_fwd; logits max |d| "
+        f"against plain attention {lm_err:.4g} (max |logit| "
+        f"{logits.abs().max().item():.4g}, std {logits.std().item():.4g})")
+    B_D, P_D, N_D = (lm_sizes.CHIP_DECODE_BATCH, lm_sizes.CHIP_PROMPT_LEN,
+                     lm_sizes.CHIP_NEW_TOKENS)
+    prompts = concrete_batch(lm_cfg, ShapeSpec("chip_decode", P_D, B_D, "prefill"),
+                             seed=1, device=dev)["tokens"]
+    toks, counts = counted(lambda: greedy_decode(lm, prompts, N_D, P_D + N_D + 1))
+    check(not any(counts.values()), f"greedy_decode launched {counts}")
+    check(toks.shape == (B_D, N_D) and toks.dtype == torch.int32
+          and bool(((toks >= 0) & (toks < lm_cfg.vocab)).all()),
+          f"greedy_decode returned {tuple(toks.shape)} {toks.dtype}")
+    cache = lm.init_cache(B_D, P_D + N_D + 1, torch.float32)
+    for t in range(P_D):
+        dec_logits, cache = lm.decode(cache, {"tokens": prompts[:, t:t + 1], "cur": t})
+    pre_logits = lm.prefill({"tokens": prompts})
+    dec_err = (dec_logits[:, 0] - pre_logits).abs().max().item()
+    check(dec_err <= LM_LOGIT_TOL, f"decode vs prefill logits max |d| {dec_err}")
+    agree = int((dec_logits[:, 0].argmax(-1) == pre_logits.argmax(-1)).sum())
+    first = int((toks[:, 0] == pre_logits.argmax(-1)).sum())
+    sync()
+    log(f"main {lm_cfg.name} greedy_decode: {B_D} requests, {P_D}-token "
+        f"prompts, {N_D} new tokens, no kernel launches; decode's logits at "
+        f"the last prompt position against the prefill's max |d| "
+        f"{dec_err:.4g}; argmax agrees {agree}/{B_D}, first new token equals "
+        f"the prefill's argmax {first}/{B_D} ({time.perf_counter() - t1:.1f} s)")
+
     sync()
     for name, n in main_launches.items():
         check(n > 0, f"{name} was not launched on its main path")
@@ -549,6 +719,37 @@ def main() -> int:
                  replaces=REPLACES[k["name"]], launches=main_launches[k["name"]])
         log(f"kernel {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.3f} ms, "
             f"library {k['library_ms']}, bound {k['bound_ms']:.4f} ms by {k['bound_by']})")
+
+    # flash_attention_fwd at the prefill's shape (the folded tensors of one
+    # layer) per schedule, beside its plain version and SDPA on the same
+    # tensors viewed (B, H, S, D). The function's own work: 4·D operations
+    # per (query, visible key) pair; q and o read and written once, k and v
+    # read once un-repeated (n_kv_heads of n_heads).
+    flash = {sched: (lambda sched=sched: flash_attention_fwd(
+        fq, fk, fv, causal=True, block_q=FLASH_BLOCK, block_k=FLASH_BLOCK,
+        schedule=sched)) for sched in FLASH_SCHEDULES}
+    f_ms = {sched: cuda_ms(fn, inner=5) for sched, fn in flash.items()}
+    plain = lambda: ref.flash_attention_ref(fq, fk, fv)
+    q4, k4, v4 = (t.view(B_P, H, S_P, HD) for t in (fq, fk, fv))
+    sdpa = lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    sdpa_err = (sdpa().reshape(fq.shape).float()
+                - flash_want.float()).abs().max().item()
+    BH = fq.shape[0]
+    f_ops = 4 * HD * BH * S_P * (S_P + 1) // 2
+    f_bytes = 2 * (2 * fq.numel() + 2 * fk.numel() * KVH // H)
+    b_ms, b_by = bound(f_bytes, f_ops, BF16_FLOP_PER_S)
+    row = dict(name="flash_attention_fwd", ms=f_ms[lm_cfg.flash_schedule],
+               plain_ms=cuda_ms(plain, reps=3, inner=1), max_abs_err=flash_main_err,
+               bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(sdpa, inner=5))
+    log(f"flash_attention_fwd {tuple(fq.shape)} bf16 causal: "
+        + ", ".join(f"{s_} {ms:.4f} ms" for s_, ms in f_ms.items())
+        + f"; plain {row['plain_ms']:.3f} ms; SDPA {row['library_ms']:.4f} ms "
+        f"(max |d| to plain {sdpa_err:.3g}); bound {b_ms:.4f} ms by {b_by} "
+        f"({f_ops / 1e9:.2f} GFLOP, {f_bytes / 1e6:.1f} MB); kernel at "
+        f"{f_ops / row['ms'] / 1e9:.1f} TFLOP/s")
+    row.update(route="cuda", source=SOURCES[row["name"]],
+               replaces=REPLACES[row["name"]], launches=main_launches[row["name"]])
+    kernels.append(row)
 
     # the main path per ordering: end to end (host clock) and kernels only
     item_bytes = 4 * fused_items_per_launch(M_MAIN, T_MAIN, G_MAIN, S_MAIN)
@@ -670,6 +871,31 @@ def main() -> int:
                              f"{d_ms:.4f} ms {how}")
             log(f"pack {spec.name} g={g_p}: " + "; ".join(parts))
 
+    # smollm-360m end to end: prefill with the kernel and with plain
+    # attention, and decode; host clock around work ending in a
+    # synchronize, median of 5 after a warm-up
+    def walls_ms(fn, n=5):
+        fn()
+        sync()
+        walls = []
+        for _ in range(n):
+            t1 = time.perf_counter()
+            fn()
+            sync()
+            walls.append(1e3 * (time.perf_counter() - t1))
+        return statistics.median(walls)
+
+    pf_ms = walls_ms(lambda: lm.prefill(batch))
+    pp_ms = walls_ms(lambda: tfm.prefill(lm.params(), batch, plain_cfg), n=3)
+    dec_ms = walls_ms(lambda: greedy_decode(lm, prompts, N_D, P_D + N_D + 1))
+    steps = P_D + N_D - 1
+    log(f"{lm_cfg.name} prefill B={B_P} S={S_P}: {pf_ms:.3f} ms "
+        f"({B_P * S_P / pf_ms * 1e3:.0f} tokens/s) with flash_attention_fwd, "
+        f"{pp_ms:.3f} ms ({B_P * S_P / pp_ms * 1e3:.0f} tokens/s) with plain "
+        f"attention; greedy_decode {B_D}x{N_D} after {P_D}-token prompts: "
+        f"{dec_ms:.3f} ms, {dec_ms / steps:.3f} ms per step ({steps} steps), "
+        f"{B_D * N_D / dec_ms * 1e3:.1f} new tokens/s")
+
     sync()
     log(f"timings ({time.perf_counter() - t0:.1f} s)")
 
@@ -692,12 +918,13 @@ def main() -> int:
         if not by_name:
             log(f"profile {what}: the profiler recorded no device time "
                 "(not measured)")
-            return
+            return by_name
         busy = sum(by_name.values())
         log(f"profile {what}, profiler on: wall {wall_ms:.3f} ms, device busy "
             f"{busy:.3f} ms ({100 * busy / wall_ms:.1f}%)")
         for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
             log(f"  {ms:.4f} ms  {name[:100]}")
+        return by_name
 
     app = apps["hilbert"]
     profiled(lambda: app.run_resident(K_MAIN), f"run_resident({K_MAIN}) hilbert")
@@ -706,6 +933,16 @@ def main() -> int:
         profiled(lambda: app.run_distributed(mesh, K_D),
                  f"run_distributed({K_D}) {CHIP_DISTRIBUTED.ordering.name} "
                  f"{'x'.join(map(str, shape))}", top=12)
+
+    by_name = profiled(lambda: lm.prefill(batch),
+                       f"{lm_cfg.name} prefill B={B_P} S={S_P}", top=10)
+    if by_name:
+        fa_ms = sum(ms for name, ms in by_name.items() if "flash_fwd_kernel" in name)
+        log(f"flash_attention_fwd share of the prefill's device time: "
+            f"{fa_ms:.3f} of {sum(by_name.values()):.3f} ms "
+            f"({100 * fa_ms / sum(by_name.values()):.1f}%)")
+    profiled(lambda: greedy_decode(lm, prompts, N_D, P_D + N_D + 1),
+             f"{lm_cfg.name} greedy_decode {B_D}x{N_D}", top=6)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -3,6 +3,9 @@
 The JAX package and the torch package exchange data only as numpy
 arrays: a test makes its inputs with numpy and hands the same arrays to
 both. These helpers check what they are given and put it on a device.
+A language model's weights cross the same way: JAX's random streams
+cannot be reproduced in torch, so ``lm_params_from_numpy`` takes the JAX
+parameter tree as numpy arrays.
 """
 
 from __future__ import annotations
@@ -13,10 +16,13 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.params import _leaf_paths
+from repro_torch.models.zoo import Model
 from repro_torch.stencil.gol3d import Gol3d, Gol3dConfig
 
-__all__ = ["from_reference_state", "store_from_numpy", "store_to_numpy",
-           "weights_from_numpy"]
+__all__ = ["from_reference_state", "lm_params_from_numpy", "store_from_numpy",
+           "store_to_numpy", "weights_from_numpy"]
 
 
 def from_reference_state(state_path: np.ndarray, cfg: Gol3dConfig,
@@ -58,3 +64,36 @@ def weights_from_numpy(weights: np.ndarray, device="cuda") -> torch.Tensor:
     if arr.shape != (s, s, s) or s % 2 == 0 or arr.dtype != np.float32:
         raise ValueError(f"weights must be (2g+1,)*3 float32, got {arr.shape} {arr.dtype}")
     return torch.from_numpy(arr.copy()).to(resolve_device(device))
+
+
+def _numpy_leaves(tree, prefix=()):
+    if not isinstance(tree, dict):
+        yield prefix, tree
+        return
+    for k in sorted(tree):
+        yield from _numpy_leaves(tree[k], prefix + (k,))
+
+
+def lm_params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> Model:
+    """A :class:`Model` of ``cfg`` on ``device`` holding the weights of
+    ``tree``, a JAX parameter tree as numpy arrays (e.g.
+    ``jax.tree.map(np.asarray, params)``). Every path, shape and dtype
+    (``cfg.param_dtype``) must match the port's ParamDef tree, with no leaf
+    missing or left over."""
+    model = Model(cfg, device=device)
+    want = {path: d for path, d in _leaf_paths(model.defs())}
+    got = {path: np.asarray(a) for path, a in _numpy_leaves(tree)}
+    if set(got) != set(want):
+        missing = sorted("/".join(p) for p in set(want) - set(got))
+        extra = sorted("/".join(p) for p in set(got) - set(want))
+        raise ValueError(f"parameter tree does not match {cfg.name}: "
+                         f"missing {missing}, unexpected {extra}")
+    params = dict(model.named_parameters())
+    dtype = np.dtype(cfg.param_dtype)
+    for path, d in want.items():
+        arr = got[path]
+        if arr.shape != tuple(d.shape) or arr.dtype != dtype:
+            raise ValueError(f"{'/'.join(path)}: want {tuple(d.shape)} {dtype}, "
+                             f"got {arr.shape} {arr.dtype}")
+        params[".".join(path)].data.copy_(torch.from_numpy(arr))
+    return model

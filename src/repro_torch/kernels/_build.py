@@ -39,7 +39,7 @@ __all__ = ["LAUNCHES", "NVCC_FLAGS", "SOURCES", "build", "launch", "library",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("stencil3d", "sfc_gather")
+SOURCES = ("stencil3d", "sfc_gather", "flash_attn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-prec-div=true", "-prec-sqrt=true", "-ftz=false",
@@ -51,7 +51,8 @@ _LOCK = threading.Lock()
 # Kernel launches per wrapper since the last reset_launches(). A wrapper
 # adds one where it launches its kernel and nowhere else.
 LAUNCHES = {"stencil_step_fused": 0, "stencil_sum_resident": 0,
-            "stencil_sum_blocks": 0, "gather_rows": 0}
+            "stencil_sum_blocks": 0, "gather_rows": 0,
+            "flash_attention_fwd": 0}
 
 
 def reset_launches() -> None:

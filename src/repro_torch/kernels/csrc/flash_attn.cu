@@ -1,0 +1,236 @@
+// Flash attention forward for Hopper (sm_90a), on a space-filling-curve
+// schedule of the (q-block x kv-block) grid.
+//
+// Replaces flash_attention_fwd (_flash_kernel) of
+// src/repro/kernels/flash_attn.py. On the TPU one sequential grid axis
+// walks the (causally filtered) cells in curve order, and the online-
+// softmax state of every q block lives in VMEM scratch between visits.
+// Here blocks run in parallel, so each thread block owns one (bh, q block)
+// and keeps that state in registers for its whole life:
+//   - the curve sets which thread blocks run together: blockIdx.x is the
+//     position of the q block in the order the curve first visits it
+//     (an L2 swizzle: neighbouring thread blocks of one head share K/V);
+//   - the curve sets the order of the kv blocks within a thread block: the
+//     cells of that q row, in the order the schedule visits them (Hilbert's
+//     is not monotone, and the online softmax does not care).
+// The wrapper (kernels/flash_attn.py) turns the cell list into that plan,
+// [q_order (nq) | row_ptr (nq+1) | cols (ncells)], once per grid shape.
+//
+// Arithmetic, as the TPU kernel: scores q.k in f32 scaled by 1/sqrt(D)
+// after the product, keys past the causal diagonal (aligned to the end:
+// col <= row + Sk - Sq) masked to -inf, running max and sum per row, a row
+// with no key gives 0, the output rounded once to q's dtype. Products and
+// sums are explicit fmaf, so the build's -fmad=false costs nothing here.
+//
+// Design (the simple first kernel): one thread per q row (blockDim = the q
+// block, 16..128 rows), its q row and f32 accumulator in registers; each
+// kv tile of K and V is staged in shared memory as f32 (2 * bk * DP * 4
+// bytes, 64 KiB at bk = 128, D = 64), and every thread reads it by
+// broadcast, 16 bytes at a time. Keys are scored 16 at a time before one
+// online-softmax update. D is padded to DP (16, 32, 64 or 128) with zeros.
+//
+// What bounds it on an H100: at the prefill's shape (BH = 60, S = 2048,
+// D = 64, causal, bf16) the function needs 4 * D * BH * S(S+1)/2 = 3.2e10
+// operations (0.033 ms at 989 TFLOP/s in bf16) against 42 MB of traffic
+// (0.013 ms at 3.35 TB/s): operations. This kernel runs them as f32 FMAs
+// on the CUDA cores (67 TFLOP/s at most) with one shared-memory load per
+// four FMAs, so it cannot come within 15x of that bound; wgmma on the
+// tensor cores, TMA and warp specialisation are the redesign's work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int KC = 16;           // keys scored per online-softmax update
+constexpr int MAX_ROWS = 128;    // largest q block (threads per block)
+
+__device__ __forceinline__ void load8(const float* p, float* dst) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  dst[0] = a.x; dst[1] = a.y; dst[2] = a.z; dst[3] = a.w;
+  dst[4] = b.x; dst[5] = b.y; dst[6] = b.z; dst[7] = b.w;
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* dst) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    dst[2 * i] = f.x;
+    dst[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(MAX_ROWS)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 const int* __restrict__ plan, int sq, int sk, int d, int bq,
+                 int bk, int causal, float scale) {
+  extern __shared__ float4 smem4[];
+  float* ks = reinterpret_cast<float*>(smem4);  // (bk, DP)
+  float* vs = ks + bk * DP;                     // (bk, DP)
+  const int nq = sq / bq;
+  const int* q_order = plan;
+  const int* row_ptr = plan + nq;
+  const int* cols = plan + 2 * nq + 1;
+
+  const int iq = q_order[blockIdx.x];
+  const int r = threadIdx.x;
+  const int row = iq * bq + r;
+  const int offs = sk - sq;
+  const int64_t qbase = (static_cast<int64_t>(blockIdx.y) * sq + row) * d;
+  const int64_t kvbase = static_cast<int64_t>(blockIdx.y) * sk * d;
+
+  float qr[DP], acc[DP];
+#pragma unroll
+  for (int c = 0; c < DP; c += 8) {
+    if (c < d) {
+      load8(q + qbase + c, qr + c);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) qr[c + i] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[c + i] = 0.f;
+  }
+  // the padded columns [d, DP) of the tiles stay zero
+  for (int e = r; e < bk * (DP - d); e += blockDim.x) {
+    const int j = e / (DP - d), c = d + e % (DP - d);
+    ks[j * DP + c] = 0.f;
+    vs[j * DP + c] = 0.f;
+  }
+
+  float m = -INFINITY, l = 0.f;
+  const int vec_per_row = d / 8;
+  const int stop = row_ptr[iq + 1];
+  for (int t = row_ptr[iq]; t < stop; ++t) {
+    const int ik = cols[t];
+    __syncthreads();  // every row is done with the previous tile
+    for (int e = r; e < bk * vec_per_row; e += blockDim.x) {
+      const int j = e / vec_per_row, c = (e - j * vec_per_row) * 8;
+      const int64_t g = kvbase + static_cast<int64_t>(ik * bk + j) * d + c;
+      float tmp[8];
+      load8(k + g, tmp);
+      reinterpret_cast<float4*>(ks + j * DP + c)[0] = make_float4(tmp[0], tmp[1], tmp[2], tmp[3]);
+      reinterpret_cast<float4*>(ks + j * DP + c)[1] = make_float4(tmp[4], tmp[5], tmp[6], tmp[7]);
+      load8(v + g, tmp);
+      reinterpret_cast<float4*>(vs + j * DP + c)[0] = make_float4(tmp[0], tmp[1], tmp[2], tmp[3]);
+      reinterpret_cast<float4*>(vs + j * DP + c)[1] = make_float4(tmp[4], tmp[5], tmp[6], tmp[7]);
+    }
+    __syncthreads();
+    // keys j <= lim of this tile are visible to this row
+    const int lim = causal ? min(bk - 1, row + offs - ik * bk) : bk - 1;
+    for (int j0 = 0; j0 <= lim; j0 += KC) {
+      float s[KC];
+      float mc = -INFINITY;
+#pragma unroll
+      for (int jj = 0; jj < KC; ++jj) {
+        const float* kr = ks + (j0 + jj) * DP;
+        float dot = 0.f;
+#pragma unroll
+        for (int c = 0; c < DP; c += 4) {
+          const float4 kk = *reinterpret_cast<const float4*>(kr + c);
+          dot = fmaf(qr[c], kk.x, dot);
+          dot = fmaf(qr[c + 1], kk.y, dot);
+          dot = fmaf(qr[c + 2], kk.z, dot);
+          dot = fmaf(qr[c + 3], kk.w, dot);
+        }
+        s[jj] = (j0 + jj <= lim) ? dot * scale : -INFINITY;
+        mc = fmaxf(mc, s[jj]);
+      }
+      // s[0] is visible, so m_new is finite; alpha = 0 on the first update
+      const float m_new = fmaxf(m, mc);
+      const float alpha = expf(m - m_new);
+      l *= alpha;
+#pragma unroll
+      for (int c = 0; c < DP; ++c) acc[c] *= alpha;
+#pragma unroll
+      for (int jj = 0; jj < KC; ++jj) {
+        const float p = expf(s[jj] - m_new);
+        l += p;
+        const float* vr = vs + (j0 + jj) * DP;
+#pragma unroll
+        for (int c = 0; c < DP; c += 4) {
+          const float4 vv = *reinterpret_cast<const float4*>(vr + c);
+          acc[c] = fmaf(p, vv.x, acc[c]);
+          acc[c + 1] = fmaf(p, vv.y, acc[c + 1]);
+          acc[c + 2] = fmaf(p, vv.z, acc[c + 2]);
+          acc[c + 3] = fmaf(p, vv.w, acc[c + 3]);
+        }
+      }
+      m = m_new;
+    }
+  }
+  const float inv = l > 0.f ? 1.f / l : 0.f;
+#pragma unroll
+  for (int c = 0; c < DP; ++c) {
+    if (c < d) store(o + qbase + c, acc[c] * inv);
+  }
+}
+
+template <typename T, int DP>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   const int* plan, int bh, int sq, int sk, int d, int bq,
+                   int bk, int causal, float scale, cudaStream_t stream) {
+  const size_t smem = 2 * static_cast<size_t>(bk) * DP * sizeof(float);
+  auto kern = flash_fwd_kernel<T, DP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kern<<<dim3(sq / bq, bh), bq, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), plan, sq, sk, d, bq, bk,
+      causal, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
+                     const int* plan, int bh, int sq, int sk, int d, int bq,
+                     int bk, int causal, float scale, cudaStream_t st) {
+  if (d <= 16) return launch<T, 16>(q, k, v, o, plan, bh, sq, sk, d, bq, bk, causal, scale, st);
+  if (d <= 32) return launch<T, 32>(q, k, v, o, plan, bh, sq, sk, d, bq, bk, causal, scale, st);
+  if (d <= 64) return launch<T, 64>(q, k, v, o, plan, bh, sq, sk, d, bq, bk, causal, scale, st);
+  return launch<T, 128>(q, k, v, o, plan, bh, sq, sk, d, bq, bk, causal, scale, st);
+}
+
+}  // namespace
+
+extern "C" {
+
+// q (bh, sq, d), k and v (bh, sk, d), o (bh, sq, d), contiguous, all of
+// one dtype (0: f32, 1: bf16), 16-byte aligned. d a multiple of 8 up to
+// 128; bq and bk multiples of 16 up to 128 dividing sq and sk. plan int32
+// [q_order (sq/bq) | row_ptr (sq/bq + 1) | cols]. The wrapper checks all
+// of this; the kernel trusts it.
+int repro_flash_attention_fwd(const void* q, const void* k, const void* v,
+                              void* o, const void* plan, int bh, int sq,
+                              int sk, int d, int bq, int bk, int causal,
+                              float scale, int dtype, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  auto pl = static_cast<const int*>(plan);
+  if (d < 8 || d > 128 || d % 8 || bq < 16 || bq > MAX_ROWS || bq % 16 ||
+      bk < 16 || bk > 128 || bk % KC || sq % bq || sk % bk)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (dtype) {
+    case 0: return launch_d<float>(q, k, v, o, pl, bh, sq, sk, d, bq, bk, causal, scale, st);
+    case 1: return launch_d<__nv_bfloat16>(q, k, v, o, pl, bh, sq, sk, d, bq, bk, causal, scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+const char* repro_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

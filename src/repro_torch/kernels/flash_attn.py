@@ -1,0 +1,151 @@
+"""Flash attention with a space-filling-curve block schedule: the wrapper
+of the CUDA kernel.
+
+The torch counterpart of ``repro.kernels.flash_attn``: ``build_schedule``
+(numpy, array-equal to the JAX package's) and ``flash_attention_fwd``,
+with the same signature minus ``interpret``. The kernel lives in
+``csrc/flash_attn.cu``. The (q-block × kv-block) score grid is a 2D index
+space (DESIGN.md §5); on the TPU one sequential grid walks its cells in
+curve order. On the GPU the thread blocks run in parallel, one per (head,
+q block): the curve orders the q blocks (the order in which the thread
+blocks are handed out) and, within one, its kv blocks. The plan that
+says so is built once per grid shape and kept on the device.
+
+The device decides the path: a CUDA tensor launches the kernel or raises,
+a CPU tensor runs the plain version (kernels/ref.flash_attention_ref).
+Each launch adds one to ``LAUNCHES["flash_attention_fwd"]``
+(kernels/_build.py).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import numpy as np
+import torch
+
+from repro_torch.core.layout import device_constant
+from repro_torch.core.orderings import path_index_2d
+
+from . import _build, ref
+
+__all__ = ["SCHEDULES", "build_schedule", "flash_attention_fwd", "schedule_plan"]
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_BLOCK = 128
+SCHEDULES = ("row_major", "morton", "hilbert")
+
+
+def build_schedule(nq: int, nk: int, *, causal: bool, block_q: int,
+                   block_k: int, kind: str = "morton",
+                   offs: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """Cell visit order over the (nq × nk) block grid.
+
+    Returns (iq_of_t, ik_of_t) int32 arrays of equal length = #visited
+    cells. Causal filtering keeps cells whose block intersects
+    ``col <= row + offs`` (offs = Sk - Sq aligns the diagonal at the end).
+    """
+    if kind == "row_major":
+        cells = [(iq, ik) for iq in range(nq) for ik in range(nk)]
+    else:
+        n = 1 << max(0, (max(nq, nk) - 1)).bit_length()
+        n = max(n, 2)
+        seq = path_index_2d(kind, n)
+        cells = [divmod(int(t), n) for t in seq]
+        cells = [(iq, ik) for iq, ik in cells if iq < nq and ik < nk]
+    if causal:
+        cells = [(iq, ik) for iq, ik in cells
+                 if ik * block_k <= (iq + 1) * block_q - 1 + offs]
+    iq = np.array([c[0] for c in cells], dtype=np.int32)
+    ik = np.array([c[1] for c in cells], dtype=np.int32)
+    return iq, ik
+
+
+def schedule_plan(nq: int, nk: int, *, causal: bool, block_q: int,
+                  block_k: int, kind: str, offs: int) -> np.ndarray:
+    """The kernel's plan, int32 ``[q_order (nq) | row_ptr (nq+1) | cols]``:
+    the q blocks in the order the schedule first visits them (then those
+    it never visits, whose rows see no key), and for each q block its kv
+    blocks in the order the schedule visits them (CSR by q block)."""
+    iq, ik = build_schedule(nq, nk, causal=causal, block_q=block_q,
+                            block_k=block_k, kind=kind, offs=offs)
+    seen, first = np.unique(iq, return_index=True)
+    order = np.concatenate([seen[np.argsort(first)],
+                            np.setdiff1d(np.arange(nq), seen)])
+    cols = ik[np.argsort(iq, kind="stable")]
+    row_ptr = np.concatenate([[0], np.cumsum(np.bincount(iq, minlength=nq))])
+    return np.concatenate([order, row_ptr, cols]).astype(np.int32)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.library("flash_attn")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.repro_flash_attention_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
+                                              i, ctypes.c_float, i, p]
+    lib.repro_flash_attention_fwd.restype = ctypes.c_int
+    return lib
+
+
+def _check(q, k, v, block_q: int, block_k: int, schedule: str) -> None:
+    if schedule not in SCHEDULES:
+        raise ValueError(f"unknown schedule {schedule!r}; use one of {SCHEDULES}")
+    if q.ndim != 3 or k.ndim != 3 or v.shape != k.shape:
+        raise ValueError(f"q must be (BH, Sq, D) and k, v (BH, Sk, D), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    BH, Sq, D = q.shape
+    if k.shape[0] != BH or k.shape[2] != D:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ in "
+                         "BH or D")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k and v must all be float32 or bfloat16, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if q.device.type not in ("cpu", "cuda") or k.device != q.device \
+            or v.device != q.device:
+        raise ValueError(f"q, k and v must lie on one cuda or cpu device, got "
+                         f"{q.device}, {k.device}, {v.device}")
+    if D % 8 or not 8 <= D <= 128:
+        raise ValueError(f"head dim {D} is not a multiple of 8 in [8, 128]")
+    for name, b, s in (("block_q", block_q, Sq), ("block_k", block_k, k.shape[1])):
+        if b % 16 or not 16 <= b <= _MAX_BLOCK or s % b:
+            raise ValueError(f"{name}={b} must be a multiple of 16 in "
+                             f"[16, {_MAX_BLOCK}] dividing the sequence ({s})")
+    if BH > 65535:
+        raise ValueError(f"BH={BH} exceeds the grid's 65535 rows")
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, block_q: int = 64,
+                        block_k: int = 64, schedule: str = "morton") -> torch.Tensor:
+    """Flash attention forward. q: (BH, Sq, D); k, v: (BH, Sk, D).
+
+    Heads are pre-folded into the batch axis (ops.py handles GQA). f32 or
+    bf16, arithmetic in f32, output in q's dtype; the causal diagonal is
+    aligned to the end and a row with no key gives 0. D is a multiple of
+    8 up to 128; block_q and block_k are multiples of 16 up to 128 that
+    divide Sq and Sk (ops.py picks them). Anything else raises. The
+    output does not depend on ``schedule`` beyond f32 rounding.
+    """
+    _check(q, k, v, block_q, block_k, schedule)
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal)
+    BH, Sq, D = q.shape
+    Sk = k.shape[1]
+    nq, nk, offs = Sq // block_q, Sk // block_k, Sk - Sq
+    plan = device_constant(
+        ("flashplan", nq, nk, bool(causal), block_q, block_k, schedule, offs),
+        lambda: schedule_plan(nq, nk, causal=bool(causal), block_q=block_q,
+                              block_k=block_k, kind=schedule, offs=offs),
+        q.device)
+    q, k, v = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
+               else t.clone(memory_format=torch.contiguous_format)
+               for t in (q, k, v))
+    out = torch.empty_like(q)
+    lib = _lib()
+    _build.launch(lib, "flash_attention_fwd", lib.repro_flash_attention_fwd,
+                  q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  out.data_ptr(), plan.data_ptr(), BH, Sq, Sk, D, block_q,
+                  block_k, int(bool(causal)), 1.0 / math.sqrt(D), _DTYPES[q.dtype])
+    return out

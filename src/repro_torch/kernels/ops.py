@@ -1,12 +1,13 @@
-"""Public operations around the kernels: the repack step and the face
-pack primitive.
+"""Public operations around the kernels: the repack step, the face pack
+primitive and flash attention with GQA folding.
 
 The torch counterparts of ``repro.kernels.ops.uniform_weights``,
 ``gol3d_step``, ``sfc_gather_take``, ``pack_surface`` and
-``unpack_surface``. The device decides the path: on CUDA the tap sum runs
-through the ``stencil_sum_blocks`` kernel and the gather through the
-``gather_rows`` kernel; on the CPU through their plain versions (the
-gather is then ``index_select`` along the last axis). The rule and the
+``unpack_surface`` and ``flash_attention``. The device decides the path:
+on CUDA the tap sum runs through the ``stencil_sum_blocks`` kernel, the
+gather through the ``gather_rows`` kernel and attention through the
+``flash_attention_fwd`` kernel; on the CPU through their plain versions
+(the gather is then ``index_select`` along the last axis). The rule and the
 element selection after the row gather run as torch code on both.
 """
 
@@ -23,11 +24,12 @@ from repro_torch.core.orderings import OrderingSpec
 from repro_torch.core.surfaces import surface_path_indices
 
 from . import ref
+from .flash_attn import flash_attention_fwd
 from .sfc_gather import gather_rows
 from .stencil3d import stencil_sum_blocks
 
-__all__ = ["gol3d_step", "pack_surface", "sfc_gather_take", "uniform_weights",
-           "unpack_surface"]
+__all__ = ["flash_attention", "gol3d_step", "pack_surface", "sfc_gather_take",
+           "uniform_weights", "unpack_surface"]
 
 
 def _build_uniform_weights(g: int) -> np.ndarray:
@@ -189,3 +191,52 @@ def unpack_surface(data_path: torch.Tensor, buf: torch.Tensor,
     scattered back into the face (the input is not modified)."""
     idx = _surface_idx_device(spec, M, g, face, data_path.device)
     return data_path.index_copy(-1, idx, buf)
+
+
+# ----------------------------------------------------------------------
+# Flash attention public API (GQA folding), forward only
+# ----------------------------------------------------------------------
+
+def _fold_gqa(q, k, v):
+    """(B,Hq,S,D)/(B,Hkv,S,D) -> (B*Hq, S, D) with kv repeated per group:
+    query head h reads kv head h // (Hq/Hkv), as ``jnp.repeat`` along the
+    heads gives (``Tensor.repeat`` would tile instead)."""
+    B, Hq, Sq, D = q.shape
+    Hkv = k.shape[1]
+    assert Hq % Hkv == 0, (Hq, Hkv)
+    rep = Hq // Hkv
+    k = torch.repeat_interleave(k, rep, dim=1)
+    v = torch.repeat_interleave(v, rep, dim=1)
+    return (q.reshape(B * Hq, Sq, D), k.reshape(B * Hq, -1, D),
+            v.reshape(B * Hq, -1, D))
+
+
+def _pick_block(s: int, pref: int) -> int:
+    b = min(pref, s)
+    while s % b:
+        b //= 2
+    return max(b, 1)
+
+
+def flash_attention(q, k, v, causal: bool = True, schedule: str = "morton",
+                    block_q: int = 64, block_k: int = 64) -> torch.Tensor:
+    """Flash attention forward. q: (B,Hq,S,D); k,v: (B,Hkv,Sk,D).
+
+    Folds GQA into the batch axis and runs the SFC-scheduled
+    ``flash_attention_fwd`` (the CUDA kernel on the card, its plain
+    version on the CPU). The JAX package's ``custom_vjp`` backward, a
+    recompute through the oracle, comes with the training slice as a
+    ``torch.autograd.Function``; until then a tensor that needs a gradient
+    raises.
+    """
+    if any(t.requires_grad for t in (q, k, v)) and torch.is_grad_enabled():
+        raise NotImplementedError(
+            "flash_attention is forward only; its backward comes with the "
+            "training slice (ROADMAP.md queue 1, item 12)")
+    B, Hq, Sq, D = q.shape
+    qf, kf, vf = _fold_gqa(q, k, v)
+    bq = _pick_block(Sq, block_q)
+    bk = _pick_block(kf.shape[1], block_k)
+    o = flash_attention_fwd(qf, kf, vf, causal=causal, block_q=bq,
+                            block_k=bk, schedule=schedule)
+    return o.reshape(B, Hq, Sq, D)

@@ -1,13 +1,16 @@
-"""Plain PyTorch versions of the stencil and row-gather kernels.
+"""Plain PyTorch versions of the stencil, row-gather and attention kernels.
 
 The torch counterparts of ``repro.kernels.ref``. On a CPU tensor the
-kernel wrappers (kernels/stencil3d.py) run these; on the card
+kernel wrappers (kernels/stencil3d.py, sfc_gather.py, flash_attn.py) run
+these; on the card
 ``chip_smoke.py`` holds each CUDA kernel against them on the same inputs.
 Taps accumulate in f32 in dk, di, dj order, as the kernels do: with no
 fused multiply-add on either side, results are bit-identical.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -17,7 +20,8 @@ from .rules import apply_window_bc, get_rule
 
 __all__ = ["stencil_sum_ref", "gol_rule_ref", "gol3d_step_ref",
            "assemble_halo_ref", "stencil_sum_resident_ref",
-           "stencil_fused_ref", "fields_step_ref", "gather_rows_ref"]
+           "stencil_fused_ref", "fields_step_ref", "gather_rows_ref",
+           "attention_ref", "flash_attention_ref"]
 
 
 def stencil_sum_ref(blocks: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -167,3 +171,42 @@ def gol3d_step_ref(cube: torch.Tensor, g: int, bc=PERIODIC) -> torch.Tensor:
 def gather_rows_ref(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """src: (N, L); idx: (R,) int32 -> (R, L), ``src[idx]``."""
     return src[idx]
+
+
+def _causal_mask(sq: int, sk: int, device) -> torch.Tensor:
+    """(sq, sk) bool: key j is visible to query i iff j <= i + (sk - sq),
+    the causal diagonal aligned to the END (decode against a cache)."""
+    return torch.ones((sq, sk), dtype=torch.bool, device=device).tril(sk - sq)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True) -> torch.Tensor:
+    """Dense softmax attention oracle. q,k,v: (BH, S, D) (heads pre-folded).
+    A causal row with no key (Sq > Sk) gives NaN, as in the JAX package."""
+    d = q.shape[-1]
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) / math.sqrt(d)
+    if causal:
+        mask = _causal_mask(q.shape[1], k.shape[1], q.device)
+        s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """The plain version of the ``flash_attention_fwd`` kernel: dense f32
+    softmax attention, scores scaled by 1/sqrt(D) after the product as the
+    kernel does, the causal diagonal aligned to the end. A row with no
+    key gives 0, as the kernel does (``attention_ref`` gives NaN).
+
+    q: (BH, Sq, D); k, v: (BH, Sk, D); f32 or bf16 -> q's dtype.
+    """
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * (1.0 / math.sqrt(q.shape[-1]))
+    if causal:
+        mask = _causal_mask(q.shape[1], k.shape[1], q.device)
+        empty = ~mask.any(dim=-1)[None, :, None]
+        s = s.masked_fill(~mask, float("-inf")).masked_fill(empty, 0.0)
+        p = torch.softmax(s, dim=-1).masked_fill(empty, 0.0)
+    else:
+        p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)

@@ -1,0 +1,82 @@
+"""Parameter definition trees: shapes, logical axes, init.
+
+The torch counterpart of ``repro.models.params``. Every parameter is
+declared once as a ``ParamDef(shape, axes, scale)``; ``init_params``
+materialises the tree from a ``torch.Generator`` and ``count_params``
+counts it. The JAX package's random streams cannot be reproduced in
+torch, so equal weights in both packages come from numpy
+(``interop.lm_params_from_numpy``), not from a shared seed.
+
+``partition_specs`` and ``LOGICAL_RULES`` (the sharding of the tree over
+a device mesh) wait for the sharding slice (ROADMAP queue 1, item 12).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+__all__ = ["ParamDef", "init_params", "count_params"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]      # logical axis per dim
+    scale: float = 0.02               # normal stddev; 0 -> zeros; 1.0 -> ones
+    init: str = "normal"              # normal | zeros | ones | custom:<name>
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def _leaf_paths(tree, prefix=()):
+    if isinstance(tree, ParamDef):
+        yield prefix, tree
+        return
+    for k in sorted(tree):
+        yield from _leaf_paths(tree[k], prefix + (k,))
+
+
+def _fill(t: torch.Tensor, d: ParamDef, generator: torch.Generator) -> None:
+    """Draw ``d``'s initial value into ``t`` in place."""
+    if d.init == "zeros" or d.scale == 0.0:
+        t.zero_()
+    elif d.init == "ones":
+        t.fill_(1.0)
+    elif d.init.startswith("custom:"):
+        raise NotImplementedError(
+            f"init {d.init!r} (the mamba2 parameters) is not ported yet: "
+            "ROADMAP.md queue 1, item 12")
+    else:
+        t.normal_(0.0, d.scale, generator=generator)
+
+
+def init_params(defs, generator: torch.Generator, dtype=torch.float32,
+                device="cuda"):
+    """Materialise a ParamDef tree into tensors on ``device``: normal
+    draws of each leaf's scale from ``generator`` (which must live on
+    ``device``), leaves in sorted path order."""
+    flat = {}
+    for path, d in _leaf_paths(defs):
+        t = torch.empty(d.shape, dtype=dtype, device=device)
+        _fill(t, d, generator)
+        flat[path] = t
+    return _unflatten(flat)
+
+
+def count_params(defs) -> int:
+    return sum(int(np.prod(d.shape)) for _, d in _leaf_paths(defs))
+
+
+def _unflatten(flat: dict[tuple, Any]):
+    root: dict = {}
+    for path, v in flat.items():
+        node = root
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return root

@@ -1,0 +1,196 @@
+"""Model assembly: param-def trees + the layer loop for forward/decode.
+
+The torch counterpart of ``repro.models.transformer`` for the dense
+family (a GQA decoder LM: smollm, deepseek-coder, phi4, gemma3's
+local:global pattern through per-layer flags). Per-layer parameters are
+stacked on a leading ``layers`` axis, as in the JAX package, so the two
+parameter trees match leaf for leaf; a Python loop over that axis takes
+the place of ``lax.scan``. Nothing here differentiates: training (remat,
+the chunked loss) comes with the training slice.
+
+The other families — moe, ssm, hybrid, encdec, vlm — and MLA raise
+:class:`NotImplementedError` naming ROADMAP.md queue 1, item 12.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from . import attention as attn
+from .config import ModelConfig
+from .layers import embed, rmsnorm, swiglu, unembed
+from .params import ParamDef
+
+__all__ = ["model_defs", "forward", "forward_hidden", "prefill",
+           "decode_step", "cache_defs"]
+
+L = "layers"
+_NOT_PORTED = "is not ported yet: ROADMAP.md queue 1, item 12"
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise unless ``cfg`` is a dense GQA model, the family this package
+    runs."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"model family {cfg.family!r} ({cfg.name}) "
+                                  f"{_NOT_PORTED}")
+    if cfg.mla is not None:
+        raise NotImplementedError(f"MLA attention ({cfg.name}) {_NOT_PORTED}")
+
+
+# ======================================================================
+# Param defs
+# ======================================================================
+
+def _attn_defs(cfg: ModelConfig, n_layers: int) -> dict:
+    """GQA projection defs, stacked over n_layers."""
+    H, KV, hd, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model
+    o_scale = 0.02 / np.sqrt(2 * cfg.n_layers)
+    return {
+        "wq": ParamDef((n_layers, D, H * hd), (L, "embed", "heads")),
+        "wk": ParamDef((n_layers, D, KV * hd), (L, "embed", "kv_heads")),
+        "wv": ParamDef((n_layers, D, KV * hd), (L, "embed", "kv_heads")),
+        "wo": ParamDef((n_layers, H * hd, D), (L, "heads", "embed"), scale=o_scale),
+    }
+
+
+def _mlp_defs(D: int, F: int, n_layers: int, o_scale: float) -> dict:
+    return {
+        "gate": ParamDef((n_layers, D, F), (L, "embed", "ffn")),
+        "up": ParamDef((n_layers, D, F), (L, "embed", "ffn")),
+        "down": ParamDef((n_layers, F, D), (L, "ffn", "embed"), scale=o_scale),
+    }
+
+
+def _norm(D: int, n_layers: int | None) -> ParamDef:
+    lead = () if n_layers is None else (n_layers,)
+    la = () if n_layers is None else (L,)
+    return ParamDef(lead + (D,), la + (None,), init="zeros")
+
+
+def _decoder_layer_defs(cfg: ModelConfig, n_layers: int) -> dict:
+    D = cfg.d_model
+    o_scale = 0.02 / np.sqrt(2 * cfg.n_layers)
+    d = {"norm1": _norm(D, n_layers), "norm2": _norm(D, n_layers)}
+    d.update(_attn_defs(cfg, n_layers))
+    d.update(_mlp_defs(D, cfg.d_ff, n_layers, o_scale))
+    return d
+
+
+def model_defs(cfg: ModelConfig) -> dict:
+    check_ported(cfg)
+    D, V = cfg.d_model, cfg.vocab_padded
+    defs: dict[str, Any] = {
+        "embed": ParamDef((V, D), ("vocab", "embed")),
+        "final_norm": _norm(D, None),
+    }
+    if not cfg.tie_embeddings:
+        defs["unembed"] = ParamDef((D, V), ("embed", "vocab"))
+    defs["layers"] = _decoder_layer_defs(cfg, cfg.n_layers)
+    return defs
+
+
+# ======================================================================
+# Forward (full sequence)
+# ======================================================================
+
+def _layer_flags(cfg: ModelConfig) -> np.ndarray:
+    return np.array([cfg.layer_is_global(i) for i in range(cfg.n_layers)],
+                    dtype=np.bool_)
+
+
+def _layer(stacked: dict, i: int) -> dict:
+    """Layer ``i``'s slice of the stacked parameters (views)."""
+    return {k: w[i] for k, w in stacked.items()}
+
+
+def _attn_layer_train(p, x, cfg: ModelConfig, is_global, pos):
+    """One decoder layer (attention + FFN); a dense layer has no aux loss."""
+    h = rmsnorm(x, p["norm1"], cfg.norm_eps)
+    x = x + attn.gqa_attention(p, h, cfg, is_global=is_global, pos=pos)
+    h2 = rmsnorm(x, p["norm2"], cfg.norm_eps)
+    return x + swiglu(p, h2)
+
+
+def forward_hidden(params: dict, batch: dict, cfg: ModelConfig):
+    """Full-sequence trunk -> (hidden (B,S,D) after final norm, aux_loss)."""
+    check_ported(cfg)
+    adt = getattr(torch, cfg.activation_dtype)
+    x = embed(params["embed"], batch["tokens"], adt)
+    pos = torch.arange(x.shape[1], device=x.device)
+    for i, fl in enumerate(_layer_flags(cfg)):
+        x = _attn_layer_train(_layer(params["layers"], i), x, cfg, bool(fl), pos)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
+
+
+def _unembed_w(params, cfg):
+    return params["embed"].T if cfg.tie_embeddings else params["unembed"]
+
+
+def _mask_pad(logits, cfg: ModelConfig):
+    """-1e30 on the padded vocab tail (vocab_pad_multiple) wherever logits
+    surface, so padding never wins a softmax/argmax."""
+    if cfg.vocab_padded == cfg.vocab:
+        return logits
+    keep = torch.arange(logits.shape[-1], device=logits.device) < cfg.vocab
+    return torch.where(keep, logits, -1e30)
+
+
+def forward(params: dict, batch: dict, cfg: ModelConfig):
+    """Full-sequence forward -> (logits f32 (B,S,V), aux_loss).
+
+    Materialises the full logits — use only for small configs/tests;
+    prefill uses the last position only.
+    """
+    x, aux = forward_hidden(params, batch, cfg)
+    return _mask_pad(unembed(_unembed_w(params, cfg), x), cfg), aux
+
+
+def prefill(params: dict, batch: dict, cfg: ModelConfig):
+    """Inference prefill: trunk + LAST-position logits only (B,V)."""
+    x, _ = forward_hidden(params, batch, cfg)
+    return _mask_pad(unembed(_unembed_w(params, cfg), x[:, -1]), cfg)
+
+
+# ======================================================================
+# Decode (single token with cache)
+# ======================================================================
+
+def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    """ParamDef tree for the decode cache (zeros, dtype chosen at init)."""
+    check_ported(cfg)
+
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    axes = (L, "batch", "seq", "kv_heads", None)
+    return {"layers": {"k": ParamDef(shape, axes, init="zeros"),
+                       "v": ParamDef(shape, axes, init="zeros")}}
+
+
+def _attn_layer_decode(p, x, cl, cur, cfg, is_global):
+    h = rmsnorm(x, p["norm1"], cfg.norm_eps)
+    a, cl_new = attn.gqa_decode(p, h, cl, cur, cfg, is_global=is_global)
+    x = x + a
+    h2 = rmsnorm(x, p["norm2"], cfg.norm_eps)
+    return x + swiglu(p, h2), cl_new
+
+
+def decode_step(params: dict, cache: dict, batch: dict, cfg: ModelConfig):
+    """One-token decode. batch: {tokens:(B,1), cur: int} -> (logits, cache).
+
+    The cache is written in place (position ``cur`` of every layer) and
+    returned."""
+    check_ported(cfg)
+    adt = getattr(torch, cfg.activation_dtype)
+    cur = int(batch["cur"])
+    x = embed(params["embed"], batch["tokens"], adt)
+    layers = cache["layers"]
+    for i, fl in enumerate(_layer_flags(cfg)):
+        cl = {"k": layers["k"][i], "v": layers["v"][i]}
+        x, _ = _attn_layer_decode(_layer(params["layers"], i), x, cl, cur, cfg,
+                                  bool(fl))
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return _mask_pad(unembed(_unembed_w(params, cfg), x), cfg), cache

@@ -450,8 +450,147 @@ def _recipe_distributed() -> dict[str, np.ndarray]:
     return res
 
 
+# --------------------------------------------- flash attention and LM cases
+
+# (BH, Sq, Sk, D) of tests/test_kernels.py's flash checks, blocks of 16
+FLASH_SHAPES = ((2, 64, 64, 16), (1, 128, 128, 32), (2, 32, 128, 16))
+FLASH_SCHEDULES = ("row_major", "morton", "hilbert")
+FLASH_BF16_SHAPE, FLASH_BF16_BLOCK = (2, 64, 32), 32
+GQA_Q, GQA_KV = (2, 4, 32, 8), (2, 2, 32, 8)
+# (nq, nk, block_q, block_k, offs): square, non-square, non-power-of-two
+# grids, and the diagonal moved by Sk - Sq > 0
+SCHEDULE_GRIDS = ((4, 4, 16, 16, 0), (8, 8, 16, 16, 0), (4, 8, 16, 16, 64),
+                  (8, 4, 32, 64, 0), (3, 5, 16, 16, 32), (6, 6, 32, 32, 0),
+                  (5, 3, 16, 32, 0), (16, 16, 128, 128, 0), (2, 6, 16, 16, 64),
+                  (1, 1, 16, 16, 0))
+
+
+def flash_inputs(shape, seed: int) -> tuple[np.ndarray, ...]:
+    """q, k, v as f32 normals for (BH, Sq, Sk, D)."""
+    BH, Sq, Sk, D = shape
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(BH, Sq, D)).astype(np.float32),
+            rng.normal(size=(BH, Sk, D)).astype(np.float32),
+            rng.normal(size=(BH, Sk, D)).astype(np.float32))
+
+
+def gqa_inputs() -> tuple[np.ndarray, ...]:
+    rng = np.random.default_rng(17)
+    return (rng.normal(size=GQA_Q).astype(np.float32),
+            rng.normal(size=GQA_KV).astype(np.float32),
+            rng.normal(size=GQA_KV).astype(np.float32))
+
+
+LM_SEED, LM_B, LM_S = 5, 2, 16
+GREEDY_P, GREEDY_NEW = 8, 6
+# the 4-layer tiny dense config of tests/test_models.py (GQA 4 -> 2 heads)
+TINY_DENSE = dict(name="tiny-dense", family="dense", n_layers=4, d_model=64,
+                  n_heads=4, n_kv_heads=2, d_ff=128, vocab=256,
+                  activation_dtype="float32", flash_schedule="hilbert")
+
+
+def lm_configs(pkg: str) -> dict:
+    """The LM test configurations, built from package ``pkg`` ("repro" or
+    "repro_torch"), the flash kernel's path on: SMOKE of smollm-360m, the
+    tiny dense config, and that config with bf16 activations (forward and
+    prefill only: the JAX decode scan refuses an f32 cache under bf16
+    activations)."""
+    import dataclasses
+    import importlib
+
+    cmod = importlib.import_module(f"{pkg}.models.config")
+    smoke = importlib.import_module(f"{pkg}.configs.smollm_360m").SMOKE
+    tiny = cmod.ModelConfig(**TINY_DENSE, use_flash_kernel=True)
+    return {"smoke": dataclasses.replace(smoke, use_flash_kernel=True),
+            "tiny": tiny,
+            "tiny_bf16": dataclasses.replace(tiny, name="tiny-dense-bf16",
+                                             activation_dtype="bfloat16")}
+
+
+def lm_tokens(vocab: int, shape, seed: int) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, vocab, shape, dtype=np.int32)
+
+
+def _recipe_flash() -> dict[str, np.ndarray]:
+    import jax.numpy as jnp
+
+    from repro.kernels import ops
+    from repro.kernels.flash_attn import build_schedule, flash_attention_fwd
+
+    res = {}
+    for causal in (True, False):
+        for kind in FLASH_SCHEDULES:
+            for nq, nk, bq, bk, offs in SCHEDULE_GRIDS:
+                iq, ik = build_schedule(nq, nk, causal=causal, block_q=bq,
+                                        block_k=bk, kind=kind, offs=offs)
+                tag = f"{kind}/{int(causal)}/{nq}x{nk}/{bq}x{bk}/{offs}"
+                res[f"sched_iq/{tag}"] = iq
+                res[f"sched_ik/{tag}"] = ik
+            for n, shape in enumerate(FLASH_SHAPES):
+                q, k, v = (jnp.asarray(a) for a in flash_inputs(shape, n))
+                res[f"fwd/{kind}/{int(causal)}/{n}"] = np.asarray(flash_attention_fwd(
+                    q, k, v, causal=causal, block_q=16, block_k=16,
+                    schedule=kind, interpret=True))
+    BH, S, D = FLASH_BF16_SHAPE
+    q, k, v = (jnp.asarray(a).astype(jnp.bfloat16)
+               for a in flash_inputs((BH, S, S, D), 99))
+    res["fwd_bf16"] = np.asarray(flash_attention_fwd(
+        q, k, v, causal=True, block_q=FLASH_BF16_BLOCK,
+        block_k=FLASH_BF16_BLOCK, interpret=True)).astype(np.float32)
+    q, k, v = (jnp.asarray(a) for a in gqa_inputs())
+    res["gqa"] = np.asarray(ops.flash_attention(q, k, v, True, "hilbert", 64, 64))
+    res["gqa_fold_k"] = np.asarray(ops._fold_gqa(q, k, v)[1])
+    return res
+
+
+def _recipe_lm() -> dict[str, np.ndarray]:
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs.registry import SHAPES, ShapeSpec, concrete_batch
+    from repro.configs.smollm_360m import CONFIG
+    from repro.models import build_model
+    from repro.serve import greedy_decode
+
+    res = {"n_params/smollm-360m": np.asarray(build_model(CONFIG).n_params())}
+    for name, cfg in lm_configs("repro").items():
+        m = build_model(cfg)
+        params = m.init(jax.random.PRNGKey(LM_SEED))
+        for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:
+            res["params/" + name + "/" + "/".join(p.key for p in path)] = np.asarray(leaf)
+        toks = jnp.asarray(lm_tokens(cfg.vocab, (LM_B, LM_S), LM_SEED))
+        batch = {"tokens": toks, "labels": toks}
+        res[f"forward/{name}"] = np.asarray(m.forward(params, batch)[0])
+        res[f"prefill/{name}"] = np.asarray(m.prefill(params, batch))
+        plain = build_model(dataclasses.replace(cfg, use_flash_kernel=False))
+        res[f"forward_sdpa/{name}"] = np.asarray(plain.forward(params, batch)[0])
+        if cfg.activation_dtype != "float32":
+            continue
+        cache = m.init_cache(LM_B, LM_S, jnp.float32)
+        dec = jax.jit(m.decode)
+        steps = []
+        for t in range(LM_S):
+            lg, cache = dec(params, cache, {"tokens": toks[:, t:t + 1],
+                                            "cur": jnp.asarray(t, jnp.int32)})
+            steps.append(np.asarray(lg[:, 0]))
+        res[f"decode/{name}"] = np.stack(steps)
+        prompts = jnp.asarray(lm_tokens(cfg.vocab, (LM_B, GREEDY_P), LM_SEED + 1))
+        res[f"greedy/{name}"] = np.asarray(greedy_decode(
+            m, params, prompts, GREEDY_NEW, GREEDY_P + GREEDY_NEW + 1))
+    for sname, shape in (("prefill", ShapeSpec("t", LM_S, LM_B, "prefill")),
+                         ("decode", SHAPES["decode_32k"])):
+        b = concrete_batch(lm_configs("repro")["smoke"], shape,
+                           batch_override=3, seed=LM_SEED)
+        for key, val in b.items():
+            res[f"batch/{sname}/{key}"] = np.asarray(val)
+    return res
+
+
 RECIPES = {"core": _recipe_core, "gol3d": _recipe_gol3d, "pack": _recipe_pack,
-           "halo": _recipe_halo, "distributed": _recipe_distributed}
+           "halo": _recipe_halo, "distributed": _recipe_distributed,
+           "flash": _recipe_flash, "lm": _recipe_lm}
 
 
 if __name__ == "__main__":

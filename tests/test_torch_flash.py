@@ -1,0 +1,152 @@
+"""Flash attention: the torch package's build_schedule, the kernel's plan,
+flash_attention_fwd (its plain version on the CPU) and ops.flash_attention
+against the JAX package's, on the same numpy inputs; the wrapper's checks.
+
+The JAX kernel runs as its own tests run it on the CPU, in interpret mode,
+in the reference subprocess (tests/_torch_oracle.py, recipe ``flash``).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_oracle import (FLASH_BF16_BLOCK, FLASH_BF16_SHAPE, FLASH_SCHEDULES,
+                           FLASH_SHAPES, SCHEDULE_GRIDS, flash_inputs,
+                           gqa_inputs, reference_arrays)
+from repro.kernels import ops as jops
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels.flash_attn import (build_schedule, flash_attention_fwd,
+                                            schedule_plan)
+
+# The plain version against the Pallas kernel in f32: both are f32
+# softmax attention, summed in another order (dense against online, in
+# 16-blocks): the JAX package's own tolerance (tests/test_kernels.py).
+F32_TOL = 2e-4
+# bf16: both compute in f32 from the same bf16 inputs and round the output
+# once, so they differ by at most one bf16 unit in the last place
+# (2^-7 of the value) where the f32 results straddle a rounding boundary.
+BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-5
+
+
+@pytest.fixture(scope="module")
+def ref_flash(tmp_path_factory):
+    return reference_arrays(tmp_path_factory, "flash")
+
+
+def _t(*arrays):
+    return tuple(torch.from_numpy(a) for a in arrays)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kind", FLASH_SCHEDULES)
+@pytest.mark.parametrize("grid", SCHEDULE_GRIDS,
+                         ids=["x".join(map(str, g)) for g in SCHEDULE_GRIDS])
+def test_build_schedule_equals_jax(ref_flash, grid, kind, causal):
+    nq, nk, bq, bk, offs = grid
+    tag = f"{kind}/{int(causal)}/{nq}x{nk}/{bq}x{bk}/{offs}"
+    iq, ik = build_schedule(nq, nk, causal=causal, block_q=bq, block_k=bk,
+                            kind=kind, offs=offs)
+    assert iq.dtype == ik.dtype == np.int32
+    np.testing.assert_array_equal(iq, ref_flash[f"sched_iq/{tag}"])
+    np.testing.assert_array_equal(ik, ref_flash[f"sched_ik/{tag}"])
+
+
+@pytest.mark.parametrize("kind", FLASH_SCHEDULES)
+@pytest.mark.parametrize("grid", SCHEDULE_GRIDS + ((4, 2, 16, 16, -32),),
+                         ids=["x".join(map(str, g)) for g in SCHEDULE_GRIDS]
+                         + ["4x2x16x16x-32"])
+def test_schedule_plan_is_the_schedule_by_row(grid, kind):
+    """The kernel's plan holds every cell once, each q block's kv blocks
+    in the schedule's visit order, and every q block (those the schedule
+    never visits last) in first-visit order."""
+    nq, nk, bq, bk, offs = grid
+    iq, ik = build_schedule(nq, nk, causal=True, block_q=bq, block_k=bk,
+                            kind=kind, offs=offs)
+    plan = schedule_plan(nq, nk, causal=True, block_q=bq, block_k=bk,
+                         kind=kind, offs=offs)
+    assert plan.dtype == np.int32 and plan.size == 2 * nq + 1 + iq.size
+    order, row_ptr, cols = plan[:nq], plan[nq:2 * nq + 1], plan[2 * nq + 1:]
+    assert sorted(order) == list(range(nq))
+    seen = list(dict.fromkeys(iq.tolist()))
+    assert order[:len(seen)].tolist() == seen
+    for r in range(nq):
+        np.testing.assert_array_equal(cols[row_ptr[r]:row_ptr[r + 1]], ik[iq == r])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kind", FLASH_SCHEDULES)
+@pytest.mark.parametrize("n", range(len(FLASH_SHAPES)))
+def test_plain_flash_matches_pallas_kernel(ref_flash, n, kind, causal):
+    q, k, v = _t(*flash_inputs(FLASH_SHAPES[n], n))
+    got = flash_attention_fwd(q, k, v, causal=causal, block_q=16, block_k=16,
+                              schedule=kind)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), ref_flash[f"fwd/{kind}/{int(causal)}/{n}"],
+                               rtol=F32_TOL, atol=F32_TOL)
+
+
+def test_plain_flash_bf16_matches_pallas_kernel(ref_flash):
+    BH, S, D = FLASH_BF16_SHAPE
+    q, k, v = (t.to(torch.bfloat16) for t in _t(*flash_inputs((BH, S, S, D), 99)))
+    got = flash_attention_fwd(q, k, v, causal=True, block_q=FLASH_BF16_BLOCK,
+                              block_k=FLASH_BF16_BLOCK)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), ref_flash["fwd_bf16"],
+                               rtol=BF16_RTOL, atol=BF16_ATOL)
+
+
+def test_gqa_flash_attention_matches_jax(ref_flash):
+    q, k, v = _t(*gqa_inputs())
+    got = tops.flash_attention(q, k, v, True, "hilbert", 64, 64)
+    np.testing.assert_allclose(got.numpy(), ref_flash["gqa"], rtol=F32_TOL,
+                               atol=F32_TOL)
+    # query head h reads kv head h // rep (repeat_interleave, not tile)
+    np.testing.assert_array_equal(tops._fold_gqa(q, k, v)[1].numpy(),
+                                  ref_flash["gqa_fold_k"])
+
+
+@pytest.mark.parametrize("s,pref", [(2048, 128), (16, 128), (96, 64), (48, 128),
+                                    (7, 64), (1, 64), (32768, 128)])
+def test_pick_block_equals_jax(s, pref):
+    assert tops._pick_block(s, pref) == jops._pick_block(s, pref)
+
+
+def test_rows_with_no_key_give_zero():
+    """Sq > Sk, causal: the first Sq - Sk rows see no key and give 0 (the
+    JAX oracle gives NaN there); the others equal attention_ref."""
+    q, k, v = _t(*flash_inputs((2, 64, 32, 16), 5))
+    got = flash_attention_fwd(q, k, v, causal=True, block_q=16, block_k=16)
+    assert torch.all(got[:, :32] == 0)
+    want = ref.attention_ref(q, k, v, causal=True)
+    assert torch.isnan(want[:, :32]).all()
+    torch.testing.assert_close(got[:, 32:], want[:, 32:], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_ref_equals_attention_ref(causal):
+    q, k, v = _t(*flash_inputs((3, 32, 64, 8), 11))
+    torch.testing.assert_close(ref.flash_attention_ref(q, k, v, causal),
+                               ref.attention_ref(q, k, v, causal),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_wrapper_checks_and_counts_no_launch_on_cpu():
+    q, k, v = _t(*flash_inputs((2, 64, 64, 16), 1))
+    before = _build.LAUNCHES["flash_attention_fwd"]
+    flash_attention_fwd(q, k, v, block_q=32, block_k=64)
+    assert _build.LAUNCHES["flash_attention_fwd"] == before
+    for kw in ({"block_q": 8}, {"block_k": 24}, {"block_q": 256},
+               {"block_k": 128}):
+        with pytest.raises(ValueError, match="block"):
+            flash_attention_fwd(q, k, v, **{"block_q": 16, "block_k": 16, **kw})
+    with pytest.raises(ValueError, match="schedule"):
+        flash_attention_fwd(q, k, v, schedule="peano")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention_fwd(q, k.double(), v)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_fwd(q[..., :12], k[..., :12], v[..., :12])
+    with pytest.raises(ValueError, match="BH or D"):
+        flash_attention_fwd(q, k[:1], v[:1])
+    with pytest.raises(NotImplementedError, match="forward only"):
+        tops.flash_attention(q[None].requires_grad_(), k[None], v[None])

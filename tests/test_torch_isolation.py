@@ -20,7 +20,11 @@ def test_import_pulls_in_no_jax():
             "repro_torch.configs.gol3d, repro_torch.core.cache_model, "
             "repro_torch.core.surfaces, repro_torch.kernels.sfc_gather, "
             "repro_torch.kernels.ops, repro_torch.stencil.domain, "
-            "repro_torch.stencil.halo, repro_torch.stencil.pipeline, sys; "
+            "repro_torch.stencil.halo, repro_torch.stencil.pipeline, "
+            "repro_torch.kernels.flash_attn, repro_torch.models, "
+            "repro_torch.models.attention, repro_torch.models.transformer, "
+            "repro_torch.configs.registry, repro_torch.configs.smollm_360m, "
+            "repro_torch.serve, repro_torch.launch.serve, sys; "
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))]; "
             "assert not bad, bad")
@@ -37,13 +41,20 @@ def test_sources_name_no_jax_import():
     files.append(REPO / "chip_smoke.py")
     names = {f.name for f in files}
     assert {"cache_model.py", "surfaces.py", "sfc_gather.py", "domain.py",
-            "halo.py"} <= names
+            "halo.py", "flash_attn.py", "attention.py", "transformer.py",
+            "zoo.py", "params.py", "layers.py", "registry.py",
+            "smollm_360m.py", "serve_step.py", "serve.py"} <= names
     assert len(files) > 10
     for f in files:
         assert not pat.search(f.read_text()), f
 
 
 def test_cuda_default_raises_without_a_card(monkeypatch):
+    import types
+
+    from repro_torch.configs.smollm_360m import SMOKE
+    from repro_torch.models import Model
+    from repro_torch.serve import greedy_decode
     from repro_torch.stencil.domain import make_stencil_mesh
     from repro_torch.stencil.gol3d import Gol3d, Gol3dConfig
     from repro_torch.stencil.pipeline import ResidentPipeline
@@ -55,6 +66,14 @@ def test_cuda_default_raises_without_a_card(monkeypatch):
         ResidentPipeline(M=8, T=4)
     with pytest.raises(RuntimeError, match="cuda"):
         make_stencil_mesh((2, 2, 2))
+    with pytest.raises(RuntimeError, match="cuda"):
+        Model(SMOKE)
+    with pytest.raises(RuntimeError, match="cuda"):
+        Model(SMOKE, device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        greedy_decode(types.SimpleNamespace(device=torch.device("cuda")),
+                      torch.zeros((1, 2), dtype=torch.int32), 1, 4)
+    assert Model(SMOKE, device="cpu").embed.device.type == "cpu"
     cpu = Gol3dConfig(M=8, block_T=4, device="cpu")
     assert Gol3d(cpu).state_path.device.type == "cpu"
 
