@@ -23,7 +23,8 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    of B=4, S=2048: BH=60, D=64, bf16, causal, 128-blocks) under the
    row-major, Morton and Hilbert schedules, on the JAX package's test
    shapes (f32, causal and full, Sq < Sk), with Sq > Sk (rows with no
-   key), D=40 and 48-blocks, and one launch at S=32768, BH=15 (timed,
+   key), D=40 and 48-blocks, D=96 and D=128 in f32 and bf16 (the kernel's
+   widest build), and one launch at S=32768, BH=15 (timed,
    beside SDPA) whose last 256 rows must equal the plain version on those
    queries (the diagonal is aligned to the end) — within one bf16 unit in
    the last place
@@ -45,7 +46,11 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    full-width ``smollm-360m`` (weights from a seeded ``torch.Generator``):
    ``Model.prefill`` at B=4, S=2048 with ``use_flash_kernel`` (exactly
    one ``flash_attention_fwd`` launch per layer; logits within 0.1 of the
-   same prefill through plain ``masked_sdpa``), then ``greedy_decode`` of
+   prefill through plain ``masked_sdpa`` and of the prefill with the
+   kernel's plain version in its place; then, with the plain version
+   beside the kernel, every layer's launch within one bf16 unit of the
+   plain version on that layer's own q, k, v, and the prefill in f32
+   activations within 1e-4 of its plain-version twin), then ``greedy_decode`` of
    32 new tokens for 4 requests of 16-token prompts (no kernel launch;
    4×32 tokens; decode's logits at the last prompt position within 0.1
    of the prefill's, argmax agreement reported);
@@ -123,6 +128,13 @@ FLASH_BF16_RTOL, FLASH_BF16_ATOL = 2.0 ** -7, 1e-5
 # against plain masked_sdpa (which rounds the probabilities to bf16), and
 # decode (f32 cache, one token a step) against prefill
 LM_LOGIT_TOL = 0.1
+# smollm-360m prefill logits in f32 activations with the flash kernel
+# against the same prefill with flash_attention_ref in the kernel's place:
+# the same f32 arithmetic summed in another order, and no bf16 rounding
+# to turn a last-place difference into a flipped activation (in bf16 the
+# two sit 0.05 apart, as far as the masked_sdpa prefill: 32 layers of
+# bf16 rounding carry any flip that far)
+LM_F32_LOGIT_TOL = 1e-4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -430,14 +442,19 @@ def main() -> int:
     cases = [((BH, Sq, Sk, D), causal, 16, 16, sched)
              for BH, Sq, Sk, D in ((2, 64, 64, 16), (1, 128, 128, 32), (2, 32, 128, 16))
              for causal in (True, False) for sched in FLASH_SCHEDULES]
-    cases += [((3, 128, 64, 64), True, 32, 16, "hilbert"),   # Sq > Sk
-              ((3, 96, 96, 40), True, 32, 48, "morton")]
-    for (BH, Sq, Sk, D), causal, bq, bk, sched in cases:
-        q, k, v = randn(BH, Sq, D), randn(BH, Sk, D), randn(BH, Sk, D)
+    cases = [case + (torch.float32,) for case in cases]
+    cases += [((3, 128, 64, 64), True, 32, 16, "hilbert", torch.float32),  # Sq > Sk
+              ((3, 96, 96, 40), True, 32, 48, "morton", torch.float32),
+              # D in (64, 128]: the DP=128 build, in both dtypes
+              ((2, 64, 192, 96), True, 32, 64, "hilbert", torch.float32),
+              ((2, 256, 256, 128), True, 64, 32, "morton", torch.float32),
+              ((2, 256, 256, 128), True, 128, 128, "hilbert", torch.bfloat16)]
+    for (BH, Sq, Sk, D), causal, bq, bk, sched, dt in cases:
+        q, k, v = randn(BH, Sq, D, dtype=dt), randn(BH, Sk, D, dtype=dt), randn(BH, Sk, D, dtype=dt)
         got = flash_attention_fwd(q, k, v, causal=causal, block_q=bq, block_k=bk,
                                   schedule=sched)
         flash_err(got, ref.flash_attention_ref(q, k, v, causal=causal),
-                  f"{(BH, Sq, Sk, D)} f32 causal={causal} {bq}x{bk} {sched}")
+                  f"{(BH, Sq, Sk, D)} {dt} causal={causal} {bq}x{bk} {sched}")
         if Sq > Sk and causal:
             check(not bool(got[:, :Sq - Sk].any()), "rows with no key are not 0")
         n_cmp += 1
@@ -592,9 +609,47 @@ def main() -> int:
     plain_logits = tfm.prefill(lm.params(), batch, plain_cfg)
     lm_err = (logits - plain_logits).abs().max().item()
     check(lm_err <= LM_LOGIT_TOL, f"prefill: flash vs plain attention max |d| {lm_err}")
+    # the kernel inside the model against its plain version, with the
+    # wrapper swapped in ops (same folds, transposes and blocks; these runs
+    # are not counted): the prefill with the plain version in its place;
+    # every layer's launch on that layer's own q, k, v; and, in f32
+    # activations, the prefill with the kernel against its plain twin
+    kernel_fwd = kops.flash_attention_fwd
+    layer_errs = []
+
+    def plain_fwd(q, k, v, *, causal, block_q, block_k, schedule):
+        return ref.flash_attention_ref(q, k, v, causal=causal)
+
+    def both_fwd(q, k, v, *, causal, block_q, block_k, schedule):
+        o = kernel_fwd(q, k, v, causal=causal, block_q=block_q,
+                       block_k=block_k, schedule=schedule)
+        layer_errs.append(flash_err(o, ref.flash_attention_ref(q, k, v, causal=causal),
+                                    f"prefill layer {len(layer_errs)}"))
+        return o
+
+    def prefill_with(fwd, cfg):
+        kops.flash_attention_fwd = fwd
+        try:
+            return tfm.prefill(lm.params(), batch, cfg)
+        finally:
+            kops.flash_attention_fwd = kernel_fwd
+
+    ref_err = (logits - prefill_with(plain_fwd, lm_cfg)).abs().max().item()
+    check(ref_err <= LM_LOGIT_TOL, f"prefill: flash kernel vs its plain version max |d| {ref_err}")
+    prefill_with(both_fwd, lm_cfg)
+    check(len(layer_errs) == lm_cfg.n_layers, f"{len(layer_errs)} layers compared")
+    f32_cfg = dataclasses.replace(lm_cfg, activation_dtype="float32")
+    f32_logits = prefill_with(kernel_fwd, f32_cfg)
+    f32_err = (f32_logits - prefill_with(plain_fwd, f32_cfg)).abs().max().item()
+    check(f32_err <= LM_F32_LOGIT_TOL,
+          f"f32 prefill: flash kernel vs its plain version max |d| {f32_err}")
+    del plain_logits, f32_logits
     log(f"main {lm_cfg.name} prefill: B={B_P} S={S_P} launches "
-        f"{counts['flash_attention_fwd']} flash_attention_fwd; logits max |d| "
-        f"against plain attention {lm_err:.4g} (max |logit| "
+        f"{counts['flash_attention_fwd']} flash_attention_fwd; every layer's "
+        f"launch against the plain version on its own q, k, v max |d| "
+        f"{max(layer_errs):.4g}; logits max |d| in f32 activations against "
+        f"the plain version {f32_err:.4g}; in bf16 against the plain version "
+        f"{ref_err:.4g} and against plain attention {lm_err:.4g} (max |logit| "
         f"{logits.abs().max().item():.4g}, std {logits.std().item():.4g})")
     B_D, P_D, N_D = (lm_sizes.CHIP_DECODE_BATCH, lm_sizes.CHIP_PROMPT_LEN,
                      lm_sizes.CHIP_NEW_TOKENS)

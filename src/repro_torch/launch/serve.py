@@ -4,11 +4,11 @@ cache, on the card unless ``--device cpu``::
     python -m repro_torch.launch.serve --arch smollm-360m
     python -m repro_torch.launch.serve --arch smollm-360m --smoke --device cpu
 
-The torch counterpart of ``repro.launch.serve`` with the same parser plus
+The torch counterpart of ``repro.launch.serve``: its LM options plus
 ``--device``. Weights are random, drawn from a ``torch.Generator`` seeded
 with ``--seed``; prompts from ``numpy.random.default_rng(--seed)``.
-``--stencil`` (the ROI-query service) is not ported yet: ROADMAP.md
-queue 1, item 10.
+``--stencil`` (the ROI-query service) is not ported yet and raises; its
+options come with it (ROADMAP.md queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -24,24 +24,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prompt-len", type=int, default=8)
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--smoke", action="store_true")
-    # stencil ROI-service mode
+    # the stencil ROI-service mode is not ported: --stencil only raises
     ap.add_argument("--stencil", action="store_true",
-                    help="serve ROI queries over a stencil block store "
-                         "instead of LM decode")
-    ap.add_argument("--M", type=int, default=32)
-    ap.add_argument("--T", type=int, default=8)
-    ap.add_argument("--ordering", default="hilbert")
-    ap.add_argument("--rule", default="gol")
-    ap.add_argument("--bc", default="periodic")
-    ap.add_argument("--steps", type=int, default=4,
-                    help="pipeline steps before the snapshot is served")
-    ap.add_argument("--queries", type=int, default=12)
-    ap.add_argument("--deadline-ms", type=float, default=100.0)
-    ap.add_argument("--cache-blocks", type=int, default=256)
-    ap.add_argument("--max-in-flight", type=int, default=4)
-    ap.add_argument("--faults", action="store_true",
-                    help="inject the serving fault matrix (failed + "
-                         "bit-flipped fetches, cache poison)")
+                    help="ROI-query service (not ported yet: raises)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain PyTorch versions)")
@@ -59,7 +44,7 @@ def lm_main(args):
     from repro_torch.serve import greedy_decode
 
     if args.arch is None:
-        raise SystemExit("LM mode needs --arch (or pass --stencil)")
+        raise SystemExit("LM mode needs --arch")
     dev = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     model = Model(cfg, device=dev).init(

@@ -18,18 +18,12 @@ from repro_torch.models.zoo import Model
 __all__ = ["make_serve_step", "greedy_decode"]
 
 
-def make_serve_step(model: Model, *, sample: bool = False,
-                    temperature: float = 1.0):
+def make_serve_step(model: Model):
     def serve_step(cache, batch):
-        """batch: {tokens:(B,1) int32, cur: int, rng: torch.Generator (if
-        sampling)} -> (next tokens (B,) int32, cache)."""
+        """batch: {tokens:(B,1) int32, cur: int} -> (next tokens (B,) int32,
+        cache). Greedy; sampling is not ported yet (ROADMAP.md)."""
         logits, cache = model.decode(cache, batch)
-        lg = logits[:, -1]
-        if sample:
-            probs = torch.softmax(lg / temperature, dim=-1)
-            nxt = torch.multinomial(probs, 1, generator=batch["rng"])[:, 0]
-        else:
-            nxt = torch.argmax(lg, dim=-1)
+        nxt = torch.argmax(logits[:, -1], dim=-1)
         return nxt.to(torch.int32), cache
 
     return serve_step
