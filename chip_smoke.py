@@ -7,8 +7,11 @@ versions.
 Phases, each ending in ``torch.cuda.synchronize()``:
 
 1. set-up: TF32 off, the card's name and power limit, the kernels built
-   from ``src/repro_torch/kernels/csrc`` with nvcc (build seconds and the
-   compiler's register/spill report);
+   from ``src/repro_torch/kernels/csrc`` with nvcc (seconds per source and
+   the compiler's register/spill report per kernel instance), and the
+   SASS of the Hopper flash design (``cuobjdump -sass`` from nvcc's own
+   ``bin/``) must hold ``HGMMA`` (wgmma on the tensor cores) and
+   ``UTMALDG`` (TMA loads);
 2. every kernel against its plain PyTorch version on the card, at M=64:
    4 orderings × S ∈ {1, 2, 4} × {gol, jacobi, wave} × {periodic,
    dirichlet, neumann0, mixed}, plus g=2 with T=8, S=2, and the resident
@@ -19,17 +22,22 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    ``gather_rows`` on the six deep faces (h ∈ {1, 2, 4}) of the M=256,
    T=8 block store under the four block curves, in f32, plus bf16, int32
    and a stacked (2, n) store — every comparison bit-exact (tolerance 0);
-   ``flash_attention_fwd`` at the prefill's shape (the folded GQA tensors
-   of B=4, S=2048: BH=60, D=64, bf16, causal, 128-blocks) under the
-   row-major, Morton and Hilbert schedules, on the JAX package's test
-   shapes (f32, causal and full, Sq < Sk), with Sq > Sk (rows with no
-   key), D=40 and 48-blocks, D=96 and D=128 in f32 and bf16 (the kernel's
-   widest build), and one launch at S=32768, BH=15 (timed,
-   beside SDPA) whose last 256 rows must equal the plain version on those
+   ``flash_attention_fwd``, whose two designs ``flash_design`` picks
+   (each case asserts which one ran, by the per-design launch count): the
+   Hopper design (wgmma, TMA) at the prefill's shape (the folded GQA
+   tensors of B=4, S=2048: BH=60, D=64, bf16, causal, 128-blocks) under
+   the row-major, Morton and Hilbert schedules, and under all three on a
+   bf16 case for each of its instances (D ∈ {64, 128} × block_q, block_k
+   ∈ {64, 128}), with Sq > Sk (rows with no key, in an unvisited q block
+   and inside a visited one), Sq < Sk, and non-causal; the simple design
+   on the JAX package's test shapes (f32, causal and full, Sq < Sk), with
+   Sq > Sk, D=40 and 48-blocks, D=96 and D=128 in f32, and one bf16 case
+   (D=128, 64×32 blocks, its widest build); and one launch at S=32768,
+   BH=15 whose last 256 rows must equal the plain version on those
    queries (the diagonal is aligned to the end) — within one bf16 unit in
-   the last place
-   (|d| <= 1e-5 + 2^-7 |plain|) for bf16 and 1e-5 (relative and
-   absolute) for f32, and the largest difference between schedules;
+   the last place (|d| <= 1e-5 + 2^-7 |plain|) for bf16 and 1e-5
+   (relative and absolute) for f32, and the largest difference between
+   schedules;
 3. the main paths at full size (``repro_torch.configs.gol3d.CHIP_*``),
    each with the launch counts set to 0 just before and read just after:
    ``Gol3d.run_resident(16)`` at M=256, T=8, S=4 for the four orderings
@@ -45,7 +53,8 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    under mixed(k=neumann0), K=8, S=2 (8 steps of ``fields_step_ref``);
    full-width ``smollm-360m`` (weights from a seeded ``torch.Generator``):
    ``Model.prefill`` at B=4, S=2048 with ``use_flash_kernel`` (exactly
-   one ``flash_attention_fwd`` launch per layer; logits within 0.1 of the
+   one ``flash_attention_fwd`` launch per layer, every one of the Hopper
+   design; logits within 0.1 of the
    prefill through plain ``masked_sdpa`` and of the prefill with the
    kernel's plain version in its place; then, with the plain version
    beside the kernel, every layer's launch within one bf16 unit of the
@@ -68,10 +77,13 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    distributed path per ordering and mesh, with its exchange (pack,
    shift and scatter) beside its fused kernels; and the paper's exchange
    question: rows fetched and ms per face when packing the six faces of
-   a path-ordered M=256 cube under each ordering; the flash kernel per
-   schedule beside its plain version and SDPA (the folded tensors viewed
-   as (4, 15, S, D); a yardstick the port never calls), against the
-   bound of its operations at 989 TFLOP/s (bf16); prefill ms and tokens/s
+   a path-ordered M=256 cube under each ordering; the Hopper flash design
+   per schedule at S=2048 (BH=60) and S=32768 (BH=15) beside its plain
+   version, the simple design on the same bf16 tensors, and SDPA (the
+   folded tensors viewed as (B, 15, S, D); a yardstick the port never
+   calls), against the bound of its operations at 989 TFLOP/s (bf16),
+   with TFLOP/s; the simple design in f32 at S=2048 against 67 TFLOP/s;
+   prefill ms and tokens/s
    with the kernel and with plain attention, decode ms per step and
    tokens/s (median of 5 after a warm-up), and the kernel's share of the
    prefill's device time (profiler).
@@ -86,6 +98,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -102,7 +115,7 @@ SOURCES = {"stencil_step_fused": "src/repro_torch/kernels/csrc/stencil3d.cu",
            "stencil_sum_resident": "src/repro_torch/kernels/csrc/stencil3d.cu",
            "stencil_sum_blocks": "src/repro_torch/kernels/csrc/stencil3d.cu",
            "gather_rows": "src/repro_torch/kernels/csrc/sfc_gather.cu",
-           "flash_attention_fwd": "src/repro_torch/kernels/csrc/flash_attn.cu"}
+           "flash_attention_fwd": "src/repro_torch/kernels/csrc/flash_attn_sm90.cu"}
 REPLACES = {"stencil_step_fused": "src/repro/kernels/stencil3d.py:296",
             "stencil_sum_resident": "src/repro/kernels/stencil3d.py:212",
             "stencil_sum_blocks": "src/repro/kernels/stencil3d.py:114",
@@ -146,6 +159,22 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def kernel_name(line: str) -> str | None:
+    """The kernel and its template arguments, from the mangled name in a
+    ptxas "Compiling entry function" line (None if it holds no kernel)."""
+    for m in re.finditer(r"_kernel", line):
+        end = m.end()
+        for start in range(m.start(), 0, -1):
+            digits = re.search(r"\d+$", line[:start])
+            if digits and any(int(digits.group()[i:]) == end - start
+                              for i in range(len(digits.group()))):
+                args = line[end:].split("Ev")[0]
+                args = [a or b for a, b in
+                        re.findall(r"Li(\d+)E|\d+([A-Za-z_]\w*?)(?=L|E|$)", args)]
+                return line[start:end] + (f"<{', '.join(args)}>" if args else "")
+    return None
+
+
 def main() -> int:
     import torch
 
@@ -174,7 +203,8 @@ def main() -> int:
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import stencil3d as K
     from repro_torch.kernels.ops import uniform_weights
-    from repro_torch.kernels.flash_attn import flash_attention_fwd
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels.flash_attn import flash_attention_fwd, flash_design
     from repro_torch.kernels.sfc_gather import gather_rows
     from repro_torch.models import Model
     from repro_torch.models import transformer as tfm
@@ -265,12 +295,25 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
     reports = _build.build()
-    log(f"build: {time.perf_counter() - t0:.2f} s "
-        f"({', '.join(_build.SOURCES)}; flags {' '.join(_build.NVCC_FLAGS)})")
-    for name, text in reports.items():
+    log(f"build: {time.perf_counter() - t0:.2f} s, in parallel: "
+        + ", ".join(f"{name} {sec:.1f} s" for name, (sec, _) in reports.items())
+        + f" (flags {' '.join(_build.NVCC_FLAGS)})")
+    for name, (_, text) in reports.items():
         for line in text.splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.split(':', 1)[-1].strip()}")
+            entry = kernel_name(line)
+            if "Compiling entry function" in line and entry:
+                log(f"  ptxas {name}: {entry}")
+            elif "Used" in line or "spill" in line:
+                log(f"  ptxas {name}:   {line.split(':', 1)[-1].strip()}")
+    # the Hopper flash design really runs on the tensor cores and TMA
+    sass = subprocess.run(
+        [str(Path(_build.nvcc_path()).resolve().parent / "cuobjdump"), "-sass",
+         str(_build._lib_path("flash_attn_sm90"))],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    n_hgmma, n_tma = sass.count("HGMMA"), sass.count("UTMALDG")
+    check(n_hgmma > 0 and n_tma > 0,
+          f"flash_attn_sm90 SASS holds {n_hgmma} HGMMA and {n_tma} UTMALDG")
+    log(f"flash_attn_sm90 SASS: {n_hgmma} HGMMA, {n_tma} UTMALDG instructions")
 
     # ------------------------------------------- kernels vs plain, on the card
     t0 = time.perf_counter()
@@ -397,8 +440,9 @@ def main() -> int:
 
     # flash_attention_fwd against its plain version: the prefill's shape
     # (the GQA-folded q, k, v of one smollm-360m layer at B=4, S=2048) under
-    # each schedule, the JAX package's test shapes, Sq > Sk, D=40, and one
-    # launch at S=32768
+    # each schedule, every instance of the Hopper design, the simple
+    # design's cases, and one launch at S=32768; each case asserts which
+    # design flash_design sent it to
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -420,6 +464,16 @@ def main() -> int:
               f"flash_attention_fwd != plain: {what}: max |d| {d.max().item()}")
         return d.max().item()
 
+    def flash_on(design, q, k, v, **kw):
+        """flash_attention_fwd, after checking that ``design`` runs it."""
+        before = dict(_build.FLASH_DESIGN_LAUNCHES)
+        out = flash_attention_fwd(q, k, v, **kw)
+        ran = {d_: n - before[d_] for d_, n in _build.FLASH_DESIGN_LAUNCHES.items()}
+        check(ran == {**{d_: 0 for d_ in ran}, design: 1},
+              f"flash {tuple(q.shape)} {q.dtype} {kw}: launches by design {ran}, "
+              f"want one {design}")
+        return out
+
     lm_cfg = dataclasses.replace(lm_sizes.CONFIG, use_flash_kernel=True)
     B_P, S_P = lm_sizes.CHIP_PREFILL_BATCH, lm_sizes.CHIP_PREFILL_SEQ
     H, KVH, HD = lm_cfg.n_heads, lm_cfg.n_kv_heads, lm_cfg.hd
@@ -429,9 +483,9 @@ def main() -> int:
     flash_want = ref.flash_attention_ref(fq, fk, fv)
     by_sched, n_cmp, flash_main_err = {}, 0, 0.0
     for sched in FLASH_SCHEDULES:
-        by_sched[sched] = flash_attention_fwd(fq, fk, fv, causal=True,
-                                              block_q=FLASH_BLOCK,
-                                              block_k=FLASH_BLOCK, schedule=sched)
+        by_sched[sched] = flash_on("sm90", fq, fk, fv, causal=True,
+                                   block_q=FLASH_BLOCK, block_k=FLASH_BLOCK,
+                                   schedule=sched)
         err = flash_err(by_sched[sched], flash_want,
                         f"{tuple(fq.shape)} bf16 {sched}")
         flash_main_err = max(flash_main_err, err)
@@ -439,6 +493,8 @@ def main() -> int:
         n_cmp += 1
     sched_diff = max((a.float() - b.float()).abs().max().item()
                      for a in by_sched.values() for b in by_sched.values())
+    # the simple design: f32 on the JAX package's test shapes and others,
+    # and its widest bf16 build
     cases = [((BH, Sq, Sk, D), causal, 16, 16, sched)
              for BH, Sq, Sk, D in ((2, 64, 64, 16), (1, 128, 128, 32), (2, 32, 128, 16))
              for causal in (True, False) for sched in FLASH_SCHEDULES]
@@ -448,38 +504,44 @@ def main() -> int:
               # D in (64, 128]: the DP=128 build, in both dtypes
               ((2, 64, 192, 96), True, 32, 64, "hilbert", torch.float32),
               ((2, 256, 256, 128), True, 64, 32, "morton", torch.float32),
-              ((2, 256, 256, 128), True, 128, 128, "hilbert", torch.bfloat16)]
+              ((2, 256, 256, 128), True, 64, 32, "hilbert", torch.bfloat16)]
+    # the Hopper design: every (D, block_q, block_k) instance, causal; rows
+    # with no key in an unvisited q block (384 x 256, 128-blocks) and in a
+    # visited one (384 x 320, 128 x 64: rows 0..63 of q block 0); Sq < Sk;
+    # non-causal; each under the three schedules
+    sm90 = [((2, 256, 256, D), True, bq, bk)
+            for D in (64, 128) for bq in (64, 128) for bk in (64, 128)]
+    sm90 += [((2, 384, 256, 64), True, 128, 128), ((2, 384, 320, 64), True, 128, 64),
+             ((2, 256, 512, 64), True, 128, 128), ((2, 256, 256, 64), False, 128, 128),
+             ((2, 256, 384, 128), False, 64, 128)]
+    cases += [case + (sched, torch.bfloat16) for case in sm90
+              for sched in FLASH_SCHEDULES]
+    n_sm90 = 0
     for (BH, Sq, Sk, D), causal, bq, bk, sched, dt in cases:
         q, k, v = randn(BH, Sq, D, dtype=dt), randn(BH, Sk, D, dtype=dt), randn(BH, Sk, D, dtype=dt)
-        got = flash_attention_fwd(q, k, v, causal=causal, block_q=bq, block_k=bk,
-                                  schedule=sched)
+        design = flash_design(dt, D, bq, bk)
+        got = flash_on(design, q, k, v, causal=causal, block_q=bq, block_k=bk,
+                       schedule=sched)
         flash_err(got, ref.flash_attention_ref(q, k, v, causal=causal),
-                  f"{(BH, Sq, Sk, D)} {dt} causal={causal} {bq}x{bk} {sched}")
+                  f"{(BH, Sq, Sk, D)} {dt} causal={causal} {bq}x{bk} {sched} {design}")
         if Sq > Sk and causal:
             check(not bool(got[:, :Sq - Sk].any()), "rows with no key are not 0")
         n_cmp += 1
+        n_sm90 += design == "sm90"
+    check(n_sm90 == 3 * len(sm90), f"{n_sm90} cases ran the Hopper design")
     L_S = lm_sizes.CHIP_LONG_SEQ
     lq, lk, lv = (randn(H, L_S, HD, dtype=torch.bfloat16) for _ in range(3))
-    long_fn = lambda: flash_attention_fwd(lq, lk, lv, causal=True,
-                                          block_q=FLASH_BLOCK, block_k=FLASH_BLOCK,
-                                          schedule=lm_cfg.flash_schedule)
-    long_ms = cuda_ms(long_fn, reps=1, inner=1)
-    long_sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        lq[None], lk[None], lv[None], is_causal=True), reps=1, inner=1)
-    tail = long_fn()[:, -256:]
+    tail = flash_on("sm90", lq, lk, lv, causal=True, block_q=FLASH_BLOCK,
+                    block_k=FLASH_BLOCK, schedule=lm_cfg.flash_schedule)[:, -256:]
     long_err = flash_err(tail, ref.flash_attention_ref(lq[:, -256:], lk, lv),
                          f"S={L_S} BH={H}, last 256 rows")
-    long_ops = 4 * HD * H * L_S * (L_S + 1) // 2
-    long_bound, _ = bound(2 * 4 * H * L_S * HD, long_ops, BF16_FLOP_PER_S)
     n_cmp += 1
     sync()
-    log(f"flash_attention_fwd vs plain: {n_cmp} comparisons within tolerance; "
-        f"largest difference between schedules at {tuple(fq.shape)}: "
-        f"{sched_diff:.3g}; S={L_S} BH={H}: one launch {long_ms:.3f} ms "
-        f"(SDPA {long_sdpa_ms:.3f} ms, bound {long_bound:.3f} ms by "
-        f"operations), last 256 rows max |d| "
-        f"{long_err:.3g} ({time.perf_counter() - t0:.1f} s)")
-    del lq, lk, lv, tail
+    log(f"flash_attention_fwd vs plain: {n_cmp} comparisons within tolerance "
+        f"({n_sm90 + 4} of the Hopper design); largest difference between "
+        f"schedules at {tuple(fq.shape)}: {sched_diff:.3g}; S={L_S} BH={H}: "
+        f"last 256 rows max |d| {long_err:.3g} ({time.perf_counter() - t0:.1f} s)")
+    del tail
 
     # ----------------------------------------- main paths, launches counted
     main_launches = {name: 0 for name in K.LAUNCHES}
@@ -602,8 +664,11 @@ def main() -> int:
     batch = concrete_batch(lm_cfg, ShapeSpec("chip_prefill", S_P, B_P, "prefill"),
                            seed=0, device=dev)
     logits, counts = counted(lambda: lm.prefill(batch))
+    by_design = dict(_build.FLASH_DESIGN_LAUNCHES)
     check(counts == {**{n: 0 for n in counts}, "flash_attention_fwd": lm_cfg.n_layers},
           f"prefill launches {counts}, want {lm_cfg.n_layers} flash_attention_fwd")
+    check(by_design == {"sm90": lm_cfg.n_layers, "simple": 0},
+          f"prefill flash launches by design {by_design}, want every one sm90")
     check(logits.shape == (B_P, lm_cfg.vocab) and bool(torch.isfinite(logits).all()),
           "prefill logits not finite or misshapen")
     plain_logits = tfm.prefill(lm.params(), batch, plain_cfg)
@@ -645,7 +710,8 @@ def main() -> int:
           f"f32 prefill: flash kernel vs its plain version max |d| {f32_err}")
     del plain_logits, f32_logits
     log(f"main {lm_cfg.name} prefill: B={B_P} S={S_P} launches "
-        f"{counts['flash_attention_fwd']} flash_attention_fwd; every layer's "
+        f"{counts['flash_attention_fwd']} flash_attention_fwd (by design "
+        f"{by_design}); every layer's "
         f"launch against the plain version on its own q, k, v max |d| "
         f"{max(layer_errs):.4g}; logits max |d| in f32 activations against "
         f"the plain version {f32_err:.4g}; in bf16 against the plain version "
@@ -776,35 +842,86 @@ def main() -> int:
             f"library {k['library_ms']}, bound {k['bound_ms']:.4f} ms by {k['bound_by']})")
 
     # flash_attention_fwd at the prefill's shape (the folded tensors of one
-    # layer) per schedule, beside its plain version and SDPA on the same
-    # tensors viewed (B, H, S, D). The function's own work: 4·D operations
-    # per (query, visible key) pair; q and o read and written once, k and v
-    # read once un-repeated (n_kv_heads of n_heads).
-    flash = {sched: (lambda sched=sched: flash_attention_fwd(
-        fq, fk, fv, causal=True, block_q=FLASH_BLOCK, block_k=FLASH_BLOCK,
-        schedule=sched)) for sched in FLASH_SCHEDULES}
-    f_ms = {sched: cuda_ms(fn, inner=5) for sched, fn in flash.items()}
+    # layer) per schedule, beside its plain version, the simple design on
+    # the same tensors, and SDPA on the same tensors viewed (B, H, S, D).
+    # The function's own work: 4·D operations per (query, visible key)
+    # pair; q and o read and written once, k and v read once un-repeated
+    # (n_kv_heads of n_heads). The Hopper design multiplies P twice (its
+    # bf16 halves): 1.5x those operations, reported apart.
+    def flash_ops(bh, s_):
+        return 4 * HD * bh * s_ * (s_ + 1) // 2
+
+    def flash_fn(q, k, v, sched, design=None):
+        if design is None:
+            return lambda: flash_attention_fwd(q, k, v, causal=True,
+                                               block_q=FLASH_BLOCK,
+                                               block_k=FLASH_BLOCK, schedule=sched)
+        return lambda: FA._fwd_on_card(design, q, k, v, True, FLASH_BLOCK,
+                                       FLASH_BLOCK, sched)
+
+    f_ms = {sched: cuda_ms(flash_fn(fq, fk, fv, sched), inner=20)
+            for sched in FLASH_SCHEDULES}
+    simple_ms = {sched: cuda_ms(flash_fn(fq, fk, fv, sched, "simple"), reps=3,
+                                inner=3) for sched in FLASH_SCHEDULES}
     plain = lambda: ref.flash_attention_ref(fq, fk, fv)
     q4, k4, v4 = (t.view(B_P, H, S_P, HD) for t in (fq, fk, fv))
     sdpa = lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
     sdpa_err = (sdpa().reshape(fq.shape).float()
                 - flash_want.float()).abs().max().item()
     BH = fq.shape[0]
-    f_ops = 4 * HD * BH * S_P * (S_P + 1) // 2
+    f_ops = flash_ops(BH, S_P)
     f_bytes = 2 * (2 * fq.numel() + 2 * fk.numel() * KVH // H)
     b_ms, b_by = bound(f_bytes, f_ops, BF16_FLOP_PER_S)
     row = dict(name="flash_attention_fwd", ms=f_ms[lm_cfg.flash_schedule],
                plain_ms=cuda_ms(plain, reps=3, inner=1), max_abs_err=flash_main_err,
-               bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(sdpa, inner=5))
-    log(f"flash_attention_fwd {tuple(fq.shape)} bf16 causal: "
-        + ", ".join(f"{s_} {ms:.4f} ms" for s_, ms in f_ms.items())
+               bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(sdpa, inner=20))
+    log(f"flash_attention_fwd {tuple(fq.shape)} bf16 causal, Hopper design: "
+        + ", ".join(f"{s_} {ms:.4f} ms ({f_ops / ms / 1e9:.1f} TFLOP/s)"
+                    for s_, ms in f_ms.items())
+        + "; simple design on the same tensors: "
+        + ", ".join(f"{s_} {ms:.4f} ms" for s_, ms in simple_ms.items())
         + f"; plain {row['plain_ms']:.3f} ms; SDPA {row['library_ms']:.4f} ms "
         f"(max |d| to plain {sdpa_err:.3g}); bound {b_ms:.4f} ms by {b_by} "
-        f"({f_ops / 1e9:.2f} GFLOP, {f_bytes / 1e6:.1f} MB); kernel at "
-        f"{f_ops / row['ms'] / 1e9:.1f} TFLOP/s")
+        f"({f_ops / 1e9:.2f} GFLOP, {f_bytes / 1e6:.1f} MB), "
+        f"{100 * b_ms / row['ms']:.1f}% of it reached; the design's work with "
+        f"P in two halves {1.5 * f_ops / 1e9:.2f} GFLOP "
+        f"({1.5 * f_ops / row['ms'] / 1e9:.1f} TFLOP/s)")
     row.update(route="cuda", source=SOURCES[row["name"]],
                replaces=REPLACES[row["name"]], launches=main_launches[row["name"]])
     kernels.append(row)
+    # the same at S=32768, BH=15 (one sequence's heads): K and V of all
+    # heads (126 MB) exceed the 50 MB L2, so the order in which the curve
+    # hands out q blocks could matter
+    l_ops = flash_ops(H, L_S)
+    l_ms = {sched: cuda_ms(flash_fn(lq, lk, lv, sched), reps=3, inner=3)
+            for sched in FLASH_SCHEDULES}
+    l_sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(
+        lq[None], lk[None], lv[None], is_causal=True), reps=3, inner=3)
+    l_bound, l_by = bound(2 * 4 * H * L_S * HD, l_ops, BF16_FLOP_PER_S)
+    log(f"flash_attention_fwd S={L_S} BH={H} bf16 causal, Hopper design: "
+        + ", ".join(f"{s_} {ms:.4f} ms ({l_ops / ms / 1e9:.1f} TFLOP/s, "
+                    f"{100 * l_bound / ms:.1f}% of the bound)"
+                    for s_, ms in l_ms.items())
+        + f"; SDPA {l_sdpa:.4f} ms; bound {l_bound:.4f} ms by {l_by} "
+        f"({l_ops / 1e12:.3f} TFLOP)")
+    # the simple design keeps f32 (and the other bf16 shapes): its time at
+    # the prefill's shape in f32, against 67 TFLOP/s on the CUDA cores
+    f32q, f32k, f32v = (t.float() for t in (fq, fk, fv))
+    s32_ms = cuda_ms(flash_fn(f32q, f32k, f32v, lm_cfg.flash_schedule), reps=3, inner=3)
+    s32_err = (flash_fn(f32q, f32k, f32v, lm_cfg.flash_schedule)()
+               - ref.flash_attention_ref(f32q, f32k, f32v)).abs().max().item()
+    s32_bound, s32_by = bound(2 * f_bytes, f_ops, F32_FLOP_PER_S)
+    s32_plain = cuda_ms(lambda: ref.flash_attention_ref(f32q, f32k, f32v), reps=3,
+                        inner=1)
+    s32_sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(
+        *(t.view(B_P, H, S_P, HD) for t in (f32q, f32k, f32v)), is_causal=True),
+        reps=3, inner=3)
+    log(f"flash_attention_fwd {tuple(fq.shape)} f32 causal, simple design "
+        f"({lm_cfg.flash_schedule}): {s32_ms:.4f} ms ({f_ops / s32_ms / 1e9:.1f} "
+        f"TFLOP/s), max |d| to plain {s32_err:.3g}; plain {s32_plain:.3f} ms; "
+        f"SDPA {s32_sdpa:.4f} ms; bound {s32_bound:.4f} ms by {s32_by} at "
+        f"67 TFLOP/s")
+    del lq, lk, lv, f32q, f32k, f32v
 
     # the main path per ordering: end to end (host clock) and kernels only
     item_bytes = 4 * fused_items_per_launch(M_MAIN, T_MAIN, G_MAIN, S_MAIN)
@@ -992,7 +1109,7 @@ def main() -> int:
     by_name = profiled(lambda: lm.prefill(batch),
                        f"{lm_cfg.name} prefill B={B_P} S={S_P}", top=10)
     if by_name:
-        fa_ms = sum(ms for name, ms in by_name.items() if "flash_fwd_kernel" in name)
+        fa_ms = sum(ms for name, ms in by_name.items() if "flash_fwd" in name)
         log(f"flash_attention_fwd share of the prefill's device time: "
             f"{fa_ms:.3f} of {sum(by_name.values()):.3f} ms "
             f"({100 * fa_ms / sum(by_name.values()):.1f}%)")

@@ -10,7 +10,7 @@ Flags: ``sm_90a`` (Hopper), ``-O3``, and for bit-identity with the plain
 PyTorch versions ``-fmad=false -prec-div=true -prec-sqrt=true
 -ftz=false`` — never ``--use_fast_math``. ``-Xptxas=-v`` reports each
 kernel's registers, shared memory and spills; :func:`build` returns that
-report.
+report and each nvcc's seconds.
 
 Importing this module runs nothing: the compiler is looked for only when
 a kernel is first needed, so the CPU tests import it on machines without
@@ -19,7 +19,8 @@ nvcc.
 :func:`launch` runs one kernel's C entry point on the current stream,
 raises on the error code it returns, and adds one to the kernel's count
 in :data:`LAUNCHES` — the port's one launch counter, shared by every
-wrapper.
+wrapper (the flash wrapper also counts each launch under its design in
+:data:`FLASH_DESIGN_LAUNCHES`).
 """
 
 from __future__ import annotations
@@ -30,16 +31,17 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
 
-__all__ = ["LAUNCHES", "NVCC_FLAGS", "SOURCES", "build", "launch", "library",
-           "nvcc_path", "reset_launches"]
+__all__ = ["FLASH_DESIGN_LAUNCHES", "LAUNCHES", "NVCC_FLAGS", "SOURCES", "build",
+           "launch", "library", "nvcc_path", "reset_launches"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("stencil3d", "sfc_gather", "flash_attn")
+SOURCES = ("stencil3d", "sfc_gather", "flash_attn", "flash_attn_sm90")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-prec-div=true", "-prec-sqrt=true", "-ftz=false",
@@ -53,11 +55,15 @@ _LOCK = threading.Lock()
 LAUNCHES = {"stencil_step_fused": 0, "stencil_sum_resident": 0,
             "stencil_sum_blocks": 0, "gather_rows": 0,
             "flash_attention_fwd": 0}
+# flash_attention_fwd's launches by design (kernels/flash_attn.flash_design):
+# each also counts once in LAUNCHES["flash_attention_fwd"].
+FLASH_DESIGN_LAUNCHES = {"sm90": 0, "simple": 0}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, FLASH_DESIGN_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def nvcc_path() -> str:
@@ -87,17 +93,19 @@ def _lib_path(name: str) -> Path:
     return BUILD_ROOT / _source_hash() / f"lib{name}.so"
 
 
-def build(names=SOURCES) -> dict[str, str]:
+def build(names=SOURCES) -> dict[str, tuple[float, str]]:
     """Compile every missing library of ``names``, one nvcc per source, all
-    started together. Returns ``{name: compiler report}`` ("" for a library
+    started together. Returns ``{name: (seconds, compiler report)}``, the
+    seconds from the start to that nvcc's exit ((0.0, "") for a library
     that was already built). Raises with the compiler's output on failure."""
     nvcc = None
     procs = {}
     reports = {}
+    t0 = time.perf_counter()
     for name in names:
         out = _lib_path(name)
         if out.is_file():
-            reports[name] = ""
+            reports[name] = (0.0, "")
             continue
         nvcc = nvcc or nvcc_path()
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -106,12 +114,23 @@ def build(names=SOURCES) -> dict[str, str]:
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
+    # one reader thread per nvcc, so that each one's exit is timed as it
+    # happens and no pipe fills while another is being read
+    def finish(name, proc):
+        text, _ = proc.communicate()
+        reports[name] = (time.perf_counter() - t0, text)
+
+    readers = [threading.Thread(target=finish, args=(name, proc))
+               for name, (proc, _, _) in procs.items()]
+    for r in readers:
+        r.start()
+    for r in readers:
+        r.join()
     failed = []
     for name, (proc, tmp, out) in procs.items():
-        text, _ = proc.communicate()
-        reports[name] = text
         if proc.returncode != 0:
-            failed.append(f"nvcc {name}.cu exited {proc.returncode}:\n{text}")
+            failed.append(f"nvcc {name}.cu exited {proc.returncode}:\n"
+                          f"{reports[name][1]}")
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)

@@ -1,0 +1,524 @@
+// Flash attention forward for Hopper (sm_90a) in bf16: wgmma on the tensor
+// cores, K/V tiles fed by TMA into a ring of shared-memory stages, and warp
+// specialisation, on a space-filling-curve schedule of the (q-block x
+// kv-block) grid.
+//
+// Replaces flash_attention_fwd (_flash_kernel) of
+// src/repro/kernels/flash_attn.py for bf16 q, k, v with D in {64, 128} and
+// block_q, block_k in {64, 128}; kernels/flash_attn.py picks it by a pure
+// function of dtype, D and block sizes (flash_design), and every other case
+// runs the simple kernel of csrc/flash_attn.cu. The function is the same:
+// scores q.k in f32 scaled by 1/sqrt(D), keys past the causal diagonal
+// (aligned to the end: col <= row + Sk - Sq) masked, an online softmax per
+// row, a row with no key gives 0, the output rounded once to bf16. One
+// thread block owns one (bh, q block); blockIdx.x is the q block's place in
+// the order the curve first visits it, and the block walks its kv blocks
+// in the curve's order, from the plan [q_order | row_ptr | cols] that the
+// wrapper builds (schedule_plan).
+//
+// Design:
+//   - warp specialisation: one consumer warpgroup per 64 q rows (1 or 2)
+//     and, last, a producer warpgroup whose one thread issues every TMA
+//     load; with two consumers, setmaxnreg moves registers from the
+//     producer (40) to the consumers (232);
+//   - the Q tile is loaded by TMA once; K and V tiles (bk x D bf16) go
+//     into a ring of STAGES stages guarded by full/empty mbarriers, so the
+//     next tile loads while this one is computed. Every tile is stored as
+//     64-column halves of 128-byte rows with the 128-byte swizzle, the
+//     layout that TMA writes and wgmma reads;
+//   - S = Q K^T: wgmma m64n{bk}k16 with Q and K from shared memory (both
+//     K-major, D contiguous), f32 accumulators;
+//   - the online softmax on the accumulator fragment, in f32: exp2 on the
+//     special-function unit (ex2.approx, one instruction) of scores scaled
+//     by log2(e)/sqrt(D); only tiles that cross the diagonal are masked,
+//     and a row that has seen no key yet keeps m = -inf without producing
+//     NaN (the JAX kernel's still_empty guard);
+//   - O += P V: wgmma m64n{D}k16 with P from registers (the S accumulator
+//     fragment is the A fragment of this product) and V from shared memory
+//     with the transpose bit (V is MN-major for it). P is split into
+//     bf16(P) + bf16(P - bf16(P)) and both halves are multiplied, so P
+//     keeps about 16 bits: a single bf16 P errs by up to 2^-8 per
+//     probability, which where positive and negative values of v cancel is
+//     far above the plain version's tolerance (one bf16 unit + 1e-5);
+//   - a stage is released once its P V is done; the two consumer
+//     warpgroups run the same kv walk independently, so one's softmax can
+//     overlap the other's products.
+//
+// What bounds it on an H100: at the prefill's shape (BH = 60, S = 2048,
+// D = 64, causal) the function needs 4 * D * BH * S(S+1)/2 = 3.2e10
+// operations (0.033 ms at 989 TFLOP/s in bf16) against 42 MB of traffic
+// (0.013 ms at 3.35 TB/s): operations. The split P makes the design's own
+// work 1.5x the function's. What holds it below that bound is the issue
+// of the softmax's instructions (max, exp, sum and the split: about seven
+// per score) beside narrow m64n64 products at D = 64.
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int STAGES = 2;    // K/V ring depth
+constexpr int ROWS_WG = 64;  // q rows per consumer warpgroup (wgmma's M)
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
+// TMA: copy the box at (column c0, row c1) of a 2-D tensor map into shared
+// memory; the barrier counts the bytes as they land.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor: 128-byte swizzle, start address, leading
+// and stride byte offsets (all in units of 16 bytes).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+         | (static_cast<uint64_t>(lbo >> 4) << 16)
+         | (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// 2^x in f32 on the special-function unit (one instruction; relative
+// error about 2^-22, results below 2^-126 flushed to 0).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving accumulator reads or writes across an
+// asynchronous wgmma.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// D[64 x N] (+)= A[64 x 16] B[16 x N]: A and B K-major in shared memory.
+template <int N>
+__device__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d);
+// D[64 x N] += A[64 x 16] B[16 x N]: A in registers, B MN-major in shared
+// memory (the transpose bit).
+template <int N>
+__device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// The accumulator fragment of wgmma m64nNk16 (f32): thread t of the
+// warpgroup holds, for each 8-column group j, d[4j + 2h + e] at row
+// 16 (t / 32) + (t % 32) / 4 + 8h and column 8j + 2 (t % 4) + e.
+
+// S = Q K^T for one warpgroup: q_rows is its 64 rows of the Q tile, k_tile
+// a K stage; both K-major, D in 64-column halves of 128-byte rows.
+template <int D, int BQ, int BK>
+__device__ __forceinline__ void issue_s(float (&sc)[BK / 2], uint32_t q_rows,
+                                        uint32_t k_tile) {
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const int h = ks / 4, kk = ks % 4;
+    wgmma_ss<BK>(sc, sw128_desc(q_rows + h * BQ * 128 + kk * 32, 16, 1024),
+                 sw128_desc(k_tile + h * BK * 128 + kk * 32, 16, 1024), ks > 0);
+  }
+}
+
+// O += P V with P = hi + lo from registers; V rows 16ks .. 16ks + 15 are
+// two 8-row swizzle atoms (SBO), and the 64-column halves of D = 128 lie
+// BK rows apart (LBO).
+template <int D, int BK>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
+                                         const uint32_t (&hi)[BK / 16][4],
+                                         const uint32_t (&lo)[BK / 16][4],
+                                         uint32_t v_tile) {
+#pragma unroll
+  for (int ks = 0; ks < BK / 16; ++ks) {
+    const uint64_t db = sw128_desc(v_tile + ks * 16 * 128, BK * 128, 1024);
+    wgmma_rs<D>(acc, hi[ks], db);
+    wgmma_rs<D>(acc, lo[ks], db);
+  }
+}
+
+// The online softmax of one tile of scores sc (raw q.k), in place: keys
+// 8j + e of this thread's columns with 8j + e > lim + 8h (row h of its
+// two) are masked when `mask`; m (scaled by scale_log2) and l are updated,
+// alpha is the factor for the accumulator, sc becomes p.
+template <int BK>
+__device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2],
+                                             bool mask, int lim, float scale_log2) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (mask) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (8 * j + e > lim + 8 * h) sc[4 * j + 2 * h + e] = -INFINITY;
+        }
+      }
+    }
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = sc[4 * j + 2 * h + e];
+        mx = fmaxf(mx, x);
+      }
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    // the running max stays -inf while the row has seen no key; then
+    // m_use = 0 keeps -inf - (-inf) out, and alpha = 0 meets a zero sum
+    const float m_new = fmaxf(m[h], mx * scale_log2);
+    const float m_use = m_new == -INFINITY ? 0.f : m_new;
+    alpha[h] = fast_exp2(m[h] - m_use);
+    m[h] = m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = sc[4 * j + 2 * h + e];
+        x = fast_exp2(fmaf(x, scale_log2, -m_use));
+        sum += x;
+      }
+    }
+    l[h] = fmaf(l[h], alpha[h], sum);
+  }
+}
+
+// P = hi + lo, both bf16, in the A fragment of m64nDk16: for k-step ks,
+// registers 0..3 hold (row, cols 2c..2c+1), (row + 8, same), (row, 8 +
+// ...), (row + 8, 8 + ...) of its 16 keys — the accumulator registers
+// 8ks .. 8ks + 7 of the scores, in order.
+template <int BK>
+__device__ __forceinline__ void split_p(const float (&p)[BK / 2],
+                                        uint32_t (&hi)[BK / 16][4],
+                                        uint32_t (&lo)[BK / 16][4]) {
+#pragma unroll
+  for (int ks = 0; ks < BK / 16; ++ks) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float a = p[8 * ks + 2 * i], b = p[8 * ks + 2 * i + 1];
+      const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+      hi[ks][i] = *reinterpret_cast<const uint32_t*>(&h);
+      lo[ks][i] = pack_bf16(a - __low2float(h), b - __high2float(h));
+    }
+  }
+}
+
+template <int D, int BQ, int BK>
+__global__ void __launch_bounds__((BQ / ROWS_WG + 1) * 128, 1)
+flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      __nv_bfloat16* __restrict__ o, const int* __restrict__ plan,
+                      int sq, int sk, int causal, float scale_log2) {
+  constexpr int NC = BQ / ROWS_WG;          // consumer warpgroups
+  constexpr int Q_BYTES = BQ * D * 2;
+  constexpr int KV_BYTES = BK * D * 2;      // one K or V tile
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t s_q = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t s_k = s_q + Q_BYTES;                 // STAGES K tiles
+  const uint32_t s_v = s_k + STAGES * KV_BYTES;       // STAGES V tiles
+  const uint32_t bar_q = s_v + STAGES * KV_BYTES;
+  const uint32_t bar_full = bar_q + 8;                // STAGES barriers
+  const uint32_t bar_empty = bar_full + 8 * STAGES;   // STAGES barriers
+
+  const int nq = sq / BQ;
+  const int iq = plan[blockIdx.x];
+  const int first = plan[nq + iq];
+  const int n_tiles = plan[nq + iq + 1] - first;
+  const int* cols = plan + 2 * nq + 1 + first;
+  const int bh = blockIdx.y;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, NC * 4);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == NC) {
+    // ---------------- producer: one thread issues every TMA load
+    if constexpr (NC == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == NC * 128 && n_tiles > 0) {
+      mbar_expect_tx(bar_q, Q_BYTES);
+#pragma unroll
+      for (int h = 0; h < D / 64; ++h)
+        tma_load_2d(s_q + h * BQ * 128, &tm_q, h * 64, bh * sq + iq * BQ, bar_q);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % STAGES;
+        mbar_wait(bar_empty + 8 * s, ((t / STAGES) & 1) ^ 1);
+        mbar_expect_tx(bar_full + 8 * s, 2 * KV_BYTES);
+        const int row = bh * sk + cols[t] * BK;
+#pragma unroll
+        for (int h = 0; h < D / 64; ++h) {
+          tma_load_2d(s_k + s * KV_BYTES + h * BK * 128, &tm_k, h * 64, row,
+                      bar_full + 8 * s);
+          tma_load_2d(s_v + s * KV_BYTES + h * BK * 128, &tm_v, h * 64, row,
+                      bar_full + 8 * s);
+        }
+      }
+    }
+  } else {
+    // ---------------- consumers: 64 q rows per warpgroup
+    if constexpr (NC == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int tid = threadIdx.x % 128, lane = tid % 32;
+    const int offs = sk - sq;
+    const int q0 = iq * BQ + wg * ROWS_WG;           // this warpgroup's first row
+    const int r0 = q0 + (tid / 32) * 16 + lane / 4;  // rows r0 and r0 + 8
+    const int c0 = 2 * (lane % 4);
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};  // running max, scaled by scale_log2
+    float l[2] = {0.f, 0.f};              // this thread's part of the row sums
+    const uint32_t q_rows = s_q + wg * ROWS_WG * 128;
+    float sc[BK / 2], alpha[2];
+    uint32_t p_hi[BK / 16][4], p_lo[BK / 16][4];
+    if (n_tiles > 0) mbar_wait(bar_q, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % STAGES;
+      const int k0 = cols[t] * BK;
+      mbar_wait(bar_full + 8 * s, (t / STAGES) & 1);
+      fence_regs(sc);
+      wgmma_fence();
+      issue_s<D, BQ, BK>(sc, q_rows, s_k + s * KV_BYTES);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      // only a tile that crosses this warpgroup's diagonal is masked
+      softmax_tile<BK>(sc, m, l, alpha, causal && k0 + BK - 1 > q0 + offs,
+                       r0 + offs - k0 - c0, scale_log2);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
+      split_p<BK>(sc, p_hi, p_lo);
+      fence_regs(acc);
+      wgmma_fence();
+      issue_pv<D, BK>(acc, p_hi, p_lo, s_v + s * KV_BYTES);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+    }
+    // the row sums over the four threads that share each row
+    float inv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float sum = l[h];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      inv[h] = sum > 0.f ? 1.f / sum : 0.f;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      __nv_bfloat16* orow = o + (static_cast<int64_t>(bh) * sq + r0 + 8 * h) * D + c0;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+            pack_bf16(acc[4 * j + 2 * h] * inv[h], acc[4 * j + 2 * h + 1] * inv[h]);
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, fetched from the driver at first use (no -lcuda).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A (rows, d) row-major bf16 tensor as a TMA map of (box_rows x 64)
+// boxes with the 128-byte swizzle.
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int64_t rows, int d,
+                     int box_rows) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+      strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D, int BQ, int BK>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   const int* plan, int bh, int sq, int sk, int causal,
+                   float scale_log2, cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v;
+  cudaError_t err = make_map(&tm_q, q, static_cast<int64_t>(bh) * sq, D, BQ);
+  if (err == cudaSuccess) err = make_map(&tm_k, k, static_cast<int64_t>(bh) * sk, D, BK);
+  if (err == cudaSuccess) err = make_map(&tm_v, v, static_cast<int64_t>(bh) * sk, D, BK);
+  if (err != cudaSuccess) return err;
+  const int smem = 1024 + BQ * D * 2 + 2 * STAGES * BK * D * 2 + 8 * (1 + 2 * STAGES);
+  auto kern = flash_fwd_sm90_kernel<D, BQ, BK>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3(sq / BQ, bh), (BQ / ROWS_WG + 1) * 128, smem, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), plan, sq, sk, causal,
+      scale_log2);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_blocks(const void* q, const void* k, const void* v, void* o,
+                          const int* plan, int bh, int sq, int sk, int bq, int bk,
+                          int causal, float sl, cudaStream_t st) {
+  if (bq == 64 && bk == 64) return launch<D, 64, 64>(q, k, v, o, plan, bh, sq, sk, causal, sl, st);
+  if (bq == 64) return launch<D, 64, 128>(q, k, v, o, plan, bh, sq, sk, causal, sl, st);
+  if (bk == 64) return launch<D, 128, 64>(q, k, v, o, plan, bh, sq, sk, causal, sl, st);
+  return launch<D, 128, 128>(q, k, v, o, plan, bh, sq, sk, causal, sl, st);
+}
+
+}  // namespace
+
+extern "C" {
+
+// q (bh, sq, d), k and v (bh, sk, d), o (bh, sq, d): contiguous bf16,
+// 16-byte aligned; d in {64, 128}; bq, bk in {64, 128} dividing sq, sk.
+// plan int32 [q_order (sq/bq) | row_ptr (sq/bq + 1) | cols]. scale =
+// 1/sqrt(d). The wrapper checks all of this; the kernel trusts it.
+int repro_flash_attention_fwd_sm90(const void* q, const void* k, const void* v,
+                                   void* o, const void* plan, int bh, int sq,
+                                   int sk, int d, int bq, int bk, int causal,
+                                   float scale, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  auto pl = static_cast<const int*>(plan);
+  if ((d != 64 && d != 128) || (bq != 64 && bq != 128) ||
+      (bk != 64 && bk != 128) || sq % bq || sk % bk || bh < 1 || bh > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float sl = scale * 1.4426950408889634f;  // log2(e) / sqrt(d)
+  if (d == 64) return launch_blocks<64>(q, k, v, o, pl, bh, sq, sk, bq, bk, causal, sl, st);
+  return launch_blocks<128>(q, k, v, o, pl, bh, sq, sk, bq, bk, causal, sl, st);
+}
+
+const char* repro_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

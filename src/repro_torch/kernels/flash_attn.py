@@ -3,18 +3,24 @@ of the CUDA kernel.
 
 The torch counterpart of ``repro.kernels.flash_attn``: ``build_schedule``
 (numpy, array-equal to the JAX package's) and ``flash_attention_fwd``,
-with the same signature minus ``interpret``. The kernel lives in
-``csrc/flash_attn.cu``. The (q-block × kv-block) score grid is a 2D index
-space (DESIGN.md §5); on the TPU one sequential grid walks its cells in
-curve order. On the GPU the thread blocks run in parallel, one per (head,
-q block): the curve orders the q blocks (the order in which the thread
-blocks are handed out) and, within one, its kv blocks. The plan that
-says so is built once per grid shape and kept on the device.
+with the same signature minus ``interpret``. Two hand-written CUDA
+designs compute it, and :func:`flash_design` (a pure function of dtype, D
+and the block sizes) picks one: ``csrc/flash_attn_sm90.cu`` (wgmma on the
+tensor cores, TMA-fed K/V ring, warp specialisation) for bf16 with D and
+both blocks in {64, 128}, ``csrc/flash_attn.cu`` (one thread per q row,
+f32 on the CUDA cores) for every other case.
+
+The (q-block × kv-block) score grid is a 2D index space (DESIGN.md §5);
+on the TPU one sequential grid walks its cells in curve order. On the GPU
+the thread blocks run in parallel, one per (head, q block): the curve
+orders the q blocks (the order in which the thread blocks are handed out)
+and, within one, its kv blocks. The plan that says so is built once per
+grid shape and kept on the device.
 
 The device decides the path: a CUDA tensor launches the kernel or raises,
 a CPU tensor runs the plain version (kernels/ref.flash_attention_ref).
-Each launch adds one to ``LAUNCHES["flash_attention_fwd"]``
-(kernels/_build.py).
+Each launch adds one to ``LAUNCHES["flash_attention_fwd"]`` and one to its
+design's count in ``FLASH_DESIGN_LAUNCHES`` (kernels/_build.py).
 """
 
 from __future__ import annotations
@@ -31,10 +37,12 @@ from repro_torch.core.orderings import path_index_2d
 
 from . import _build, ref
 
-__all__ = ["SCHEDULES", "build_schedule", "flash_attention_fwd", "schedule_plan"]
+__all__ = ["SCHEDULES", "build_schedule", "flash_attention_fwd", "flash_design",
+           "schedule_plan"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_BLOCK = 128
+_SM90_SIZES = (64, 128)  # D, block_q and block_k of the sm90 design
 SCHEDULES = ("row_major", "morton", "hilbert")
 
 
@@ -79,14 +87,32 @@ def schedule_plan(nq: int, nk: int, *, causal: bool, block_q: int,
     return np.concatenate([order, row_ptr, cols]).astype(np.int32)
 
 
+def flash_design(dtype: torch.dtype, d: int, block_q: int, block_k: int) -> str:
+    """The CUDA design ``flash_attention_fwd`` launches for these
+    arguments: ``"sm90"`` (``csrc/flash_attn_sm90.cu``) for bf16 with D,
+    block_q and block_k each 64 or 128; ``"simple"``
+    (``csrc/flash_attn.cu``) for every other case. Nothing else, and never
+    a failure, decides it."""
+    if dtype == torch.bfloat16 and d in _SM90_SIZES and block_q in _SM90_SIZES \
+            and block_k in _SM90_SIZES:
+        return "sm90"
+    return "simple"
+
+
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.library("flash_attn")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.repro_flash_attention_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
-                                              i, ctypes.c_float, i, p]
-    lib.repro_flash_attention_fwd.restype = ctypes.c_int
-    return lib
+def _lib(design: str) -> tuple[ctypes.CDLL, object]:
+    """The library of ``design`` and its C entry point."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if design == "sm90":
+        lib = _build.library("flash_attn_sm90")
+        fn = lib.repro_flash_attention_fwd_sm90
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, p]
+    else:
+        lib = _build.library("flash_attn")
+        fn = lib.repro_flash_attention_fwd
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, i, p]
+    fn.restype = ctypes.c_int
+    return lib, fn
 
 
 def _check(q, k, v, block_q: int, block_k: int, schedule: str) -> None:
@@ -126,11 +152,21 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     aligned to the end and a row with no key gives 0. D is a multiple of
     8 up to 128; block_q and block_k are multiples of 16 up to 128 that
     divide Sq and Sk (ops.py picks them). Anything else raises. The
-    output does not depend on ``schedule`` beyond f32 rounding.
+    output does not depend on ``schedule`` beyond f32 rounding. On the
+    card :func:`flash_design` picks the kernel; a failed build or launch
+    raises.
     """
     _check(q, k, v, block_q, block_k, schedule)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal)
+    return _fwd_on_card(flash_design(q.dtype, q.shape[2], block_q, block_k),
+                        q, k, v, causal, block_q, block_k, schedule)
+
+
+def _fwd_on_card(design: str, q, k, v, causal, block_q: int, block_k: int,
+                 schedule: str) -> torch.Tensor:
+    """Launch ``design``'s kernel on checked CUDA tensors (its own limits
+    are checked again in C, which returns an error that raises)."""
     BH, Sq, D = q.shape
     Sk = k.shape[1]
     nq, nk, offs = Sq // block_q, Sk // block_k, Sk - Sq
@@ -143,9 +179,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                else t.clone(memory_format=torch.contiguous_format)
                for t in (q, k, v))
     out = torch.empty_like(q)
-    lib = _lib()
-    _build.launch(lib, "flash_attention_fwd", lib.repro_flash_attention_fwd,
-                  q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  out.data_ptr(), plan.data_ptr(), BH, Sq, Sk, D, block_q,
-                  block_k, int(bool(causal)), 1.0 / math.sqrt(D), _DTYPES[q.dtype])
+    lib, fn = _lib(design)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            plan.data_ptr(), BH, Sq, Sk, D, block_q, block_k, int(bool(causal)),
+            1.0 / math.sqrt(D))
+    if design == "simple":
+        args += (_DTYPES[q.dtype],)
+    _build.launch(lib, "flash_attention_fwd", fn, q.device, *args)
+    _build.FLASH_DESIGN_LAUNCHES[design] += 1
     return out

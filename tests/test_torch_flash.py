@@ -1,6 +1,8 @@
 """Flash attention: the torch package's build_schedule, the kernel's plan,
 flash_attention_fwd (its plain version on the CPU) and ops.flash_attention
-against the JAX package's, on the same numpy inputs; the wrapper's checks.
+against the JAX package's, on the same numpy inputs; the wrapper's checks,
+its choice between the two CUDA designs, and a plain emulation of the
+Hopper design's arithmetic against the plain version.
 
 The JAX kernel runs as its own tests run it on the CPU, in interpret mode,
 in the reference subprocess (tests/_torch_oracle.py, recipe ``flash``).
@@ -14,10 +16,11 @@ from _torch_oracle import (FLASH_BF16_BLOCK, FLASH_BF16_SHAPE, FLASH_SCHEDULES,
                            FLASH_SHAPES, SCHEDULE_GRIDS, flash_inputs,
                            gqa_inputs, reference_arrays)
 from repro.kernels import ops as jops
+from repro_torch.configs import smollm_360m
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.flash_attn import (build_schedule, flash_attention_fwd,
-                                            schedule_plan)
+                                            flash_design, schedule_plan)
 
 # The plain version against the Pallas kernel in f32: both are f32
 # softmax attention, summed in another order (dense against online, in
@@ -150,3 +153,102 @@ def test_wrapper_checks_and_counts_no_launch_on_cpu():
         flash_attention_fwd(q, k[:1], v[:1])
     with pytest.raises(NotImplementedError, match="forward only"):
         tops.flash_attention(q[None].requires_grad_(), k[None], v[None])
+
+
+@pytest.mark.parametrize("dtype,d,block_q,block_k,want", [
+    (torch.bfloat16, 64, 128, 128, "sm90"),   # the smollm-360m prefill
+    (torch.bfloat16, 128, 128, 128, "sm90"),
+    (torch.bfloat16, 64, 128, 64, "sm90"),
+    (torch.bfloat16, 128, 64, 128, "sm90"),
+    (torch.bfloat16, 64, 64, 64, "sm90"),
+    (torch.float32, 64, 128, 128, "simple"),
+    (torch.bfloat16, 40, 64, 64, "simple"),
+    (torch.bfloat16, 96, 128, 128, "simple"),
+    (torch.bfloat16, 64, 16, 128, "simple"),
+    (torch.bfloat16, 64, 128, 32, "simple"),
+])
+def test_flash_design_is_a_function_of_dtype_d_and_blocks(dtype, d, block_q,
+                                                          block_k, want):
+    assert flash_design(dtype, d, block_q, block_k) == want
+
+
+def test_smollm_prefill_takes_the_hopper_design_and_cpu_runs_none():
+    """gqa_attention calls the kernel with 128 x 128 blocks on the bf16
+    activations of smollm-360m; on the CPU neither design is launched."""
+    cfg = smollm_360m.CONFIG
+    assert cfg.activation_dtype == "bfloat16"
+    assert flash_design(torch.bfloat16, cfg.hd, 128, 128) == "sm90"
+    q, k, v = (t.to(torch.bfloat16) for t in _t(*flash_inputs((2, 128, 128, 64), 3)))
+    before = dict(_build.FLASH_DESIGN_LAUNCHES)
+    flash_attention_fwd(q, k, v, block_q=128, block_k=128)
+    assert _build.FLASH_DESIGN_LAUNCHES == before
+
+
+def _hopper_emulation(q, k, v, *, causal, block_q, block_k, schedule,
+                      split=True):
+    """The Hopper design's arithmetic in plain PyTorch (bf16 q, k, v):
+    f32 scores from the exact bf16 products, each q block's kv tiles in
+    the schedule's order, the running max kept scaled by log2(e)/sqrt(D),
+    p = exp2(s·c - m) with one rounding, P split into bf16(P) + bf16(P -
+    bf16(P)) (or, with ``split=False``, a single bf16(P)) multiplied by V
+    into an f32 accumulator, the output rounded once to bf16."""
+    BH, Sq, D = q.shape
+    Sk = k.shape[1]
+    nq, nk, offs = Sq // block_q, Sk // block_k, Sk - Sq
+    c = torch.tensor((1.0 / np.sqrt(D)) * np.float32(1.4426950408889634),
+                     dtype=torch.float32)
+    plan = schedule_plan(nq, nk, causal=causal, block_q=block_q,
+                         block_k=block_k, kind=schedule, offs=offs)
+    row_ptr, cols = plan[nq:2 * nq + 1], plan[2 * nq + 1:]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    out = torch.zeros(BH, Sq, D)
+    for iq in range(nq):
+        rows = torch.arange(iq * block_q, (iq + 1) * block_q)
+        acc = torch.zeros(BH, block_q, D)
+        m = torch.full((BH, block_q, 1), -torch.inf)
+        l = torch.zeros(BH, block_q, 1)
+        for ik in cols[row_ptr[iq]:row_ptr[iq + 1]]:
+            keys = torch.arange(ik * block_k, (ik + 1) * block_k)
+            s = (qf[:, rows].double() @ kf[:, keys].double().transpose(1, 2)).float()
+            if causal:
+                s = s.masked_fill(keys[None, None, :] > rows[None, :, None] + offs,
+                                  -torch.inf)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True) * c)
+            m_use = torch.where(m_new == -torch.inf, 0.0, m_new)
+            alpha = torch.exp2(m - m_use)
+            p = torch.exp2((s.double() * c.double() - m_use.double()).float())
+            hi = p.to(torch.bfloat16)
+            pv = hi.float() @ vf[:, keys]
+            if split:
+                pv = pv + (p - hi.float()).to(torch.bfloat16).float() @ vf[:, keys]
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + pv
+            m = m_new
+        out[:, rows] = acc * torch.where(l > 0, 1.0 / l, 0.0)
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", [
+    ((2, 256, 256, 64), True, 64, 64, "hilbert"),
+    ((2, 256, 256, 64), True, 128, 64, "morton"),
+    ((2, 256, 256, 128), True, 64, 128, "row_major"),
+    ((2, 256, 128, 64), True, 64, 64, "hilbert"),     # Sq > Sk
+    ((2, 128, 256, 64), False, 64, 64, "morton"),
+], ids=["hilbert", "morton-128x64", "d128-row_major", "sq>sk", "full"])
+def test_hopper_arithmetic_within_one_bf16_unit_of_plain(case):
+    """The split P keeps the f32 result within about 2^-16 of sum |p v|
+    of the plain version's, so the two bf16 outputs differ by at most one
+    unit in the last place (the bf16 tolerance the card's check holds the
+    kernel to). A single bf16(P) errs by up to 2^-8 per probability: with
+    flat softmax rows and values of both signs the outputs are small, and
+    that error exceeds the tolerance — the reason for the split."""
+    (BH, Sq, Sk, D), causal, bq, bk, sched = case
+    q, k, v = (t.to(torch.bfloat16) for t in _t(*flash_inputs((BH, Sq, Sk, D), 23)))
+    want = ref.flash_attention_ref(q, k, v, causal=causal).float()
+    tol = BF16_ATOL + BF16_RTOL * want.abs()
+    got = _hopper_emulation(q, k, v, causal=causal, block_q=bq, block_k=bk,
+                            schedule=sched).float()
+    assert bool(((got - want).abs() <= tol).all()), (got - want).abs().max()
+    one = _hopper_emulation(q, k, v, causal=causal, block_q=bq, block_k=bk,
+                            schedule=sched, split=False).float()
+    assert not bool(((one - want).abs() <= tol).all())
