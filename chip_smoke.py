@@ -11,11 +11,17 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    the compiler's register/spill report per kernel instance), and the
    SASS of the Hopper flash design (``cuobjdump -sass`` from nvcc's own
    ``bin/``) must hold ``HGMMA`` (wgmma on the tensor cores) and
-   ``UTMALDG`` (TMA loads);
+   ``UTMALDG`` (TMA loads); that of the Hopper stencil design must hold
+   its 44 kernels and no ``FFMA`` (no contracted multiply-add);
 2. every kernel against its plain PyTorch version on the card, at M=64:
    4 orderings × S ∈ {1, 2, 4} × {gol, jacobi, wave} × {periodic,
    dirichlet, neumann0, mixed}, plus g=2 with T=8, S=2, and the resident
-   and repack tap sums against each other and their plain versions; the
+   and repack tap sums against each other and their plain versions; every
+   instance of the Hopper stencil design (``fused_design``: T ∈ {8, 16},
+   g ∈ {1, 2}, S·g | T, C ∈ {1, 2} where it fits) under each of its rules
+   and the four boundaries at M=32, random weights but for gol, also
+   forced with and without its overlap; every fused and resident case asserts the design
+   that ran it, by the per-design launch count; the
    fused kernel on extended stores (core + shell blocks filled by the
    distributed path's own exchange and scatter, 2×2×2 local mesh of M=64
    shards) for S ∈ {1, 2, 4} × {gol, wave} × {periodic, neumann0, mixed};
@@ -32,14 +38,18 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    and inside a visited one), Sq < Sk, and non-causal; the simple design
    on the JAX package's test shapes (f32, causal and full, Sq < Sk), with
    Sq > Sk, D=40 and 48-blocks, D=96 and D=128 in f32, and one bf16 case
-   (D=128, 64×32 blocks, its widest build); and one launch at S=32768,
+   (D=128, 64×32 blocks, its widest build); the simple design at the
+   blocks ``ops._pick_block`` gives S ∈ {12, 24, 100} from 128 (12, 24
+   and 100), causal and not, in f32 and bf16, and at D=12 (padded to 16);
+   and one launch at S=32768,
    BH=15 whose last 256 rows must equal the plain version on those
    queries (the diagonal is aligned to the end) — within one bf16 unit in
    the last place (|d| <= 1e-5 + 2^-7 |plain|) for bf16 and 1e-5
    (relative and absolute) for f32, and the largest difference between
    schedules;
 3. the main paths at full size (``repro_torch.configs.gol3d.CHIP_*``),
-   each with the launch counts set to 0 just before and read just after:
+   each with the launch counts set to 0 just before and read just after,
+   and every fused and resident launch of the Hopper stencil design:
    ``Gol3d.run_resident(16)`` at M=256, T=8, S=4 for the four orderings
    (must equal ``reference_run(16)``; 4 fused launches each); the wave
    pipeline at M=256, S=2, neumann0 (8 steps of ``fields_step_ref``); the
@@ -66,14 +76,17 @@ Phases, each ending in ``torch.cuda.synchronize()``:
 4. timings with CUDA events (median of repeats after a warm-up), and for
    the µs-scale gather and pack calls their device time from a profiler
    trace (CUDA events instead, and said so, when traces hold no device
-   events): each kernel at its main-path shape beside its plain version, a single
+   events): each kernel at its main-path shape beside its plain version
+   (the fused step and the resident sum in both designs, and the Hopper
+   design forced with and without its overlap, in turns), a single
    PyTorch call that computes the same function where there is one
    (conv3d, TF32 off; index_select for the gather; yardsticks the port
    never calls) and the least time the card could take for the
    function's own work (bytes over 3.35 TB/s or f32 operations over
    67 TFLOP/s, whichever is larger; the halo sites the fused design
    recomputes are reported apart, as a model of the design's work);
-   ms/timestep of the main path per ordering and per block curve; of the
+   ms/timestep of the main path per ordering and per block curve (three
+   passes, for the run-to-run spread); of the
    distributed path per ordering and mesh, with its exchange (pack,
    shift and scatter) beside its fused kernels; and the paper's exchange
    question: rows fetched and ms per face when packing the six faces of
@@ -111,8 +124,8 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
-SOURCES = {"stencil_step_fused": "src/repro_torch/kernels/csrc/stencil3d.cu",
-           "stencil_sum_resident": "src/repro_torch/kernels/csrc/stencil3d.cu",
+SOURCES = {"stencil_step_fused": "src/repro_torch/kernels/csrc/stencil3d_sm90.cu",
+           "stencil_sum_resident": "src/repro_torch/kernels/csrc/stencil3d_sm90.cu",
            "stencil_sum_blocks": "src/repro_torch/kernels/csrc/stencil3d.cu",
            "gather_rows": "src/repro_torch/kernels/csrc/sfc_gather.cu",
            "flash_attention_fwd": "src/repro_torch/kernels/csrc/flash_attn_sm90.cu"}
@@ -122,6 +135,8 @@ REPLACES = {"stencil_step_fused": "src/repro/kernels/stencil3d.py:296",
             "gather_rows": "src/repro/kernels/sfc_gather.py:33",
             "flash_attention_fwd": "src/repro/kernels/flash_attn.py:106"}
 BCS = ("periodic", "dirichlet", "neumann0", "mixed")
+# csrc/stencil3d_sm90.cu: 12 (T, g, S) for gol, jacobi and identity, 8 for wave
+SM90_STENCIL_KERNELS = 44
 FACES = ("k0", "k1", "i0", "i1", "j0", "j1")
 LINE = 64  # elements per gathered row (kops.sfc_gather_take's default)
 # gather_rows launches per shard and exchange round: stencil/halo.
@@ -283,6 +298,20 @@ def main() -> int:
         t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / peak
         return (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations")
 
+    def one_launch_of(counts, design, fn, what):
+        """fn(), after checking that it made one launch, of ``design``, by
+        the per-design launch counts ``counts``."""
+        before = dict(counts)
+        out = fn()
+        ran = {d_: n - before[d_] for d_, n in counts.items()}
+        check(ran == {**{d_: 0 for d_ in ran}, design: 1},
+              f"{what}: launches by design {ran}, want one {design}")
+        return out
+
+    def stencil_on(design, fn, what):
+        """fn(), one fused or resident launch of ``design``."""
+        return one_launch_of(_build.STENCIL_DESIGN_LAUNCHES, design, fn, what)
+
     # ---------------------------------------------------------------- set-up
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -314,6 +343,18 @@ def main() -> int:
     check(n_hgmma > 0 and n_tma > 0,
           f"flash_attn_sm90 SASS holds {n_hgmma} HGMMA and {n_tma} UTMALDG")
     log(f"flash_attn_sm90 SASS: {n_hgmma} HGMMA, {n_tma} UTMALDG instructions")
+    # the Hopper stencil design: every instance built, and no contracted
+    # multiply-add anywhere (bit-exactness rests on separate FMUL and FADD)
+    sass = subprocess.run(
+        [str(Path(_build.nvcc_path()).resolve().parent / "cuobjdump"), "-sass",
+         str(_build._lib_path("stencil3d_sm90"))],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    n_kern = len(re.findall(r"Function : \S*fused_sm90_kernel", sass))
+    n_ffma, n_fmul = sass.count("FFMA"), sass.count("FMUL")
+    check(n_kern == SM90_STENCIL_KERNELS and n_ffma == 0 and n_fmul > 0,
+          f"stencil3d_sm90 SASS holds {n_kern} kernels, {n_ffma} FFMA")
+    log(f"stencil3d_sm90 SASS: {n_kern} kernels, {n_ffma} FFMA, {n_fmul} FMUL, "
+        f"{sass.count('LDGSTS')} LDGSTS (cp.async) instructions")
 
     # ------------------------------------------- kernels vs plain, on the card
     t0 = time.perf_counter()
@@ -330,19 +371,24 @@ def main() -> int:
         nbr = neighbor_table_device(kind, M // T, periodic=axes_periodic(bc), device=dev)
         bnd = boundary_face_table_device(kind, M // T, dev)
         w = uniform_weights(g, dev)
-        got = K.stencil_step_fused(store, w, nbr, bnd, g=g, S=S, rule=rule, bc=bc)
+        got = stencil_on(K.fused_design(T, g, S, C),
+                         lambda: K.stencil_step_fused(store, w, nbr, bnd, g=g, S=S,
+                                                      rule=rule, bc=bc),
+                         f"fused {kind} S={S} {rule} {bcn} T={T} g={g}")
         want = ref.stencil_fused_ref(store, w, nbr, S=S, rule=rule, bc=bc, bnd=bnd)
         check(torch.equal(got, want),
               f"fused {kind} S={S} {rule} {bcn} T={T} g={g}: max |d| "
               f"{(got - want).abs().max().item()}")
         n_cmp += 1
     for kind in KINDS:
-        for T, g in ((8, 1), (8, 2), (4, 1), (16, 4)):
+        for T, g in ((8, 1), (8, 2), (16, 1), (16, 2), (4, 1), (16, 4)):
             cube = cube_for("jacobi", M)[0]
             w = uniform_weights(g, dev)
             store = blockize(cube, T, kind)
             nbr = neighbor_table_device(kind, M // T, device=dev)
-            res = K.stencil_sum_resident(store, w, nbr, g=g)
+            res = stencil_on(K.fused_design(T, g, 1, 1),
+                             lambda: K.stencil_sum_resident(store, w, nbr, g=g),
+                             f"resident {kind} T={T} g={g}")
             halo = blockize_with_halo(cube, T, g, kind)
             rep = K.stencil_sum_blocks(halo, w, g=g)
             check(torch.equal(res, rep), f"resident != blocks {kind} T={T} g={g}")
@@ -354,6 +400,64 @@ def main() -> int:
     sync()
     log(f"kernels vs plain at M={M}: {n_cmp} comparisons bit-equal "
         f"({time.perf_counter() - t0:.1f} s)")
+
+    # every instance of the Hopper stencil design, under each rule it is
+    # built for and the four boundaries, at M=32 (random weights but for
+    # gol, whose rule counts neighbours); and, on the first boundary's
+    # inputs, the design forced with and without its overlap (the launch
+    # picks one by occupancy), as the timings run it
+    t0 = time.perf_counter()
+    M_I, n_cmp = 32, 0
+    inst = [(T, g, S, C) for T in (8, 16) for g in (1, 2) for S in (1, 2, 4, 8, 16)
+            for C in (1, 2) if K.fused_design(T, g, S, C) == "sm90"]
+    check(len(inst) == 20, f"{len(inst)} (T, g, S, C) instances of the Hopper design")
+    for n_i, (T, g, S, C) in enumerate(inst):
+        nb_i, s_ = (M_I // T) ** 3, 2 * g + 1
+        for rule in ("wave",) if C == 2 else ("gol", "jacobi", "identity"):
+            w = uniform_weights(g, dev) if rule == "gol" else torch.from_numpy(
+                rng.normal(size=(s_, s_, s_)).astype(np.float32)).to(dev)
+            for b_i, bcn in enumerate(BCS):
+                kind = KINDS[(n_i + b_i) % len(KINDS)]
+                cube = cube_for(rule, M_I, C)
+                store = (blockize_fields(cube, T, kind) if C == 2
+                         else blockize(cube[0], T, kind))
+                bc = as_boundary(bc_of(bcn))
+                nbr = neighbor_table_device(kind, M_I // T, periodic=axes_periodic(bc),
+                                            device=dev)
+                bnd = boundary_face_table_device(kind, M_I // T, dev)
+                what = f"sm90 T={T} g={g} S={S} {rule} {bcn} {kind}"
+                got = stencil_on("sm90", lambda: K.stencil_step_fused(
+                    store, w, nbr, bnd, g=g, S=S, rule=rule, bc=bc), what)
+                want = ref.stencil_fused_ref(store, w, nbr, S=S, rule=rule, bc=bc,
+                                             bnd=bnd)
+                check(torch.equal(got, want),
+                      f"{what}: max |d| {(got - want).abs().max().item()}")
+                n_cmp += 1
+                for overlap in (True, False) if b_i == 0 else ():
+                    forced = torch.full_like(got, float("nan"))
+                    stencil_on("sm90", lambda: K._fused_on_card(
+                        "sm90", store, w, nbr, None, forced, nb_i, g=g, S=S,
+                        rule=rule, bc=bc, overlap=overlap),
+                        f"{what} overlap={overlap}")
+                    check(torch.equal(forced, want), f"{what} overlap={overlap} != plain")
+                    n_cmp += 1
+        if C == 1 and S == 1:  # the resident sum's own entry, both ways
+            cube = cube_for("jacobi", M_I)[0]
+            store = blockize(cube, T, "hilbert")
+            nbr = neighbor_table_device("hilbert", M_I // T, device=dev)
+            w = torch.from_numpy(rng.normal(size=(s_, s_, s_)).astype(np.float32)).to(dev)
+            want = ref.stencil_sum_resident_ref(store, w, nbr)
+            for overlap in (True, False):
+                got = torch.full_like(store, float("nan"))
+                stencil_on("sm90", lambda: K._resident_on_card(
+                    "sm90", store, w, nbr, got, g=g, overlap=overlap),
+                    f"resident sm90 T={T} g={g} overlap={overlap}")
+                check(torch.equal(got, want),
+                      f"resident sm90 T={T} g={g} overlap={overlap} != plain")
+                n_cmp += 1
+    sync()
+    log(f"Hopper stencil design: {len(inst)} (T, g, S, C) instances, {n_cmp} "
+        f"comparisons bit-equal at M={M_I} ({time.perf_counter() - t0:.1f} s)")
 
     # The fused kernel on extended stores: the core and shell blocks of a
     # 2×2×2 local mesh of M=64 shards, the shells filled by the
@@ -381,9 +485,11 @@ def main() -> int:
                     bnd = shard_boundary_flags("hilbert", nt, co, mesh_e.shape,
                                                dev) if as_boundary(bc).clamped else None
                     spare = torch.zeros_like(ext)
-                    got = K.stencil_step_fused(ext, w, nbr_e, bnd, g=g, S=S,
-                                               rule=rule, bc=bc,
-                                               out=core_of(spare, nb))
+                    got = stencil_on(K.fused_design(T, g, S, C),
+                                     lambda: K.stencil_step_fused(
+                                         ext, w, nbr_e, bnd, g=g, S=S, rule=rule,
+                                         bc=bc, out=core_of(spare, nb)),
+                                     f"fused on extended store {rule} {bcn} S={S}")
                     want = ref.stencil_fused_ref(ext, w, nbr_e, S=S, rule=rule,
                                                  bc=bc, bnd=bnd)
                     check(torch.equal(got, want),
@@ -466,13 +572,9 @@ def main() -> int:
 
     def flash_on(design, q, k, v, **kw):
         """flash_attention_fwd, after checking that ``design`` runs it."""
-        before = dict(_build.FLASH_DESIGN_LAUNCHES)
-        out = flash_attention_fwd(q, k, v, **kw)
-        ran = {d_: n - before[d_] for d_, n in _build.FLASH_DESIGN_LAUNCHES.items()}
-        check(ran == {**{d_: 0 for d_ in ran}, design: 1},
-              f"flash {tuple(q.shape)} {q.dtype} {kw}: launches by design {ran}, "
-              f"want one {design}")
-        return out
+        return one_launch_of(_build.FLASH_DESIGN_LAUNCHES, design,
+                             lambda: flash_attention_fwd(q, k, v, **kw),
+                             f"flash {tuple(q.shape)} {q.dtype} {kw}")
 
     lm_cfg = dataclasses.replace(lm_sizes.CONFIG, use_flash_kernel=True)
     B_P, S_P = lm_sizes.CHIP_PREFILL_BATCH, lm_sizes.CHIP_PREFILL_SEQ
@@ -505,6 +607,17 @@ def main() -> int:
               ((2, 64, 192, 96), True, 32, 64, "hilbert", torch.float32),
               ((2, 256, 256, 128), True, 64, 32, "morton", torch.float32),
               ((2, 256, 256, 128), True, 64, 32, "hilbert", torch.bfloat16)]
+    # the blocks ops._pick_block gives from 128 at S = 12, 24 and 100, which
+    # are not multiples of 16, and a head dim of 12 (padded to 16)
+    f1_cases = [((3, S_, S_, 64), causal, kops._pick_block(S_, FLASH_BLOCK),
+                 kops._pick_block(S_, FLASH_BLOCK), "morton", dt)
+                for S_ in (12, 24, 100) for causal in (True, False)
+                for dt in (torch.float32, torch.bfloat16)]
+    f1_cases.append(((3, 24, 24, 12), True, 24, 24, "hilbert", torch.float32))
+    check({flash_design(c[5], c[0][3], c[2], c[3]) for c in f1_cases} == {"simple"}
+          and {c[2] for c in f1_cases} == {12, 24, 100},
+          "the F1 cases take the simple design at blocks 12, 24 and 100")
+    cases += f1_cases
     # the Hopper design: every (D, block_q, block_k) instance, causal; rows
     # with no key in an unvisited q block (384 x 256, 128-blocks) and in a
     # visited one (384 x 320, 128 x 64: rows 0..63 of q block 0); Sq < Sk;
@@ -547,10 +660,18 @@ def main() -> int:
     main_launches = {name: 0 for name in K.LAUNCHES}
 
     def counted(fn):
+        """fn() with the launch counts set to 0 just before and read just
+        after; every fused and resident launch must be of the Hopper
+        design."""
         K.reset_launches()
         out = fn()
         sync()
         counts = dict(K.LAUNCHES)
+        by_design = dict(_build.STENCIL_DESIGN_LAUNCHES)
+        stencil = counts["stencil_step_fused"] + counts["stencil_sum_resident"]
+        check(by_design == {"sm90": stencil, "simple": 0},
+              f"fused and resident launches by design {by_design}, want all "
+              f"{stencil} sm90")
         for name, n in counts.items():
             main_launches[name] += n
         return out, counts
@@ -753,12 +874,37 @@ def main() -> int:
     nb = (M_MAIN // T_MAIN) ** 3
     T3 = T_MAIN ** 3
 
-    # stencil_step_fused at the main path's shape: gol, hilbert store
+    def in_turns(variants, **kw):
+        """ms of each variant, timed in turns (a, b, c, c, b, a), and the
+        mean of its two readings."""
+        got = {name: [] for name in variants}
+        for name in [*variants, *reversed(variants)]:
+            got[name].append(cuda_ms(variants[name], **kw))
+        return {name: statistics.mean(t) for name, t in got.items()}, got
+
+    # stencil_step_fused at the main path's shape: gol, hilbert store; the
+    # first design, the Hopper design forced without and with its overlap,
+    # and as it launches (the row's time), in turns
     out = torch.empty_like(store)
     fused = lambda: K.stencil_step_fused(store, w1, nbr_h, g=G_MAIN, S=S_MAIN,
                                          out=out)
     plain = lambda: ref.stencil_fused_ref(store, w1, nbr_h, S=S_MAIN)
     err = (fused() - plain()).abs().max().item()
+    periodic = as_boundary("periodic")
+
+    def fused_by(design, overlap=None):
+        return lambda: K._fused_on_card(design, store, w1, nbr_h, None, out, nb,
+                                        g=G_MAIN, S=S_MAIN, rule="gol",
+                                        bc=periodic, overlap=overlap)
+
+    fused_variants = {"first design": fused_by("simple"),
+                      "Hopper design without overlap": fused_by("sm90", False),
+                      "Hopper design with overlap": fused_by("sm90", True),
+                      "Hopper design": fused_by("sm90")}
+    for name, fn in fused_variants.items():
+        fn()
+        check(torch.equal(out, plain()), f"fused, {name}, != plain at M={M_MAIN}")
+    fused_ms, fused_reads = in_turns(fused_variants)
     # The function's own work: S timesteps of a (multiply, add) per tap on
     # every site; one read and one write of the store, and its two tables
     # (27 neighbour ids, 6 face flags per block) and the weights read once.
@@ -768,22 +914,52 @@ def main() -> int:
     # the halo sites that the shrinking window still needs.
     design_ops = sum(nb * (T_MAIN + 2 * G_MAIN * (S_MAIN - 1 - u)) ** 3 * 2 * TAPS
                      for u in range(S_MAIN))
+    # Without FMA every multiply and add is one f32 instruction, issued at
+    # half the 67 TFLOP/s that count an FMA as two operations
+    floor = lambda n_ops: 1e3 * n_ops / (F32_FLOP_PER_S / 2)
     log(f"fused work per launch: {ops / 1e9:.3f} GFLOP for the function, "
         f"{design_ops / 1e9:.3f} GFLOP for the design with its recomputed halo "
         f"sites ({design_ops / ops:.2f}x; "
-        f"{1e3 * design_ops / F32_FLOP_PER_S:.4f} ms at 67 TFLOP/s)")
-    kernels.append(dict(name="stencil_step_fused", ms=cuda_ms(fused),
+        f"{1e3 * design_ops / F32_FLOP_PER_S:.4f} ms at 67 TFLOP/s); without "
+        f"FMA the function's floor is {floor(ops):.4f} ms, the design's "
+        f"{floor(design_ops):.4f} ms")
+    log(f"stencil_step_fused M={M_MAIN} T={T_MAIN} S={S_MAIN} g={G_MAIN} gol, in "
+        f"turns: " + "; ".join(
+            f"{name} {fused_ms[name]:.4f} ms (readings "
+            f"{', '.join(f'{t:.4f}' for t in fused_reads[name])}; "
+            f"{design_ops / fused_ms[name] / 1e9:.1f} G f32 instructions/s of "
+            f"the design's work, {100 * floor(design_ops) / fused_ms[name]:.1f}% "
+            f"of its non-FMA floor)" for name in fused_variants))
+    kernels.append(dict(name="stencil_step_fused", ms=fused_ms["Hopper design"],
                         plain_ms=cuda_ms(plain, reps=3, inner=1),
                         max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
                         library_ms=None))
 
-    # stencil_sum_resident at the main path's shape
+    # stencil_sum_resident at the main path's shape, both designs in turns
     res = lambda: K.stencil_sum_resident(store, w1, nbr_h, g=G_MAIN, out=out)
     plain = lambda: ref.stencil_sum_resident_ref(store, w1, nbr_h)
     err = (res() - plain()).abs().max().item()
     halo5, w5 = halo_main[:, None], w1[None, None]
     b_ms, b_by = bound(4 * (2 * nb * T3 + nb * 27 + TAPS), nb * T3 * 2 * TAPS)
-    kernels.append(dict(name="stencil_sum_resident", ms=cuda_ms(res),
+
+    def resident_by(design, overlap=None):
+        return lambda: K._resident_on_card(design, store, w1, nbr_h, out,
+                                           g=G_MAIN, overlap=overlap)
+
+    res_variants = {"first design": resident_by("simple"),
+                    "Hopper design without overlap": resident_by("sm90", False),
+                    "Hopper design with overlap": resident_by("sm90", True),
+                    "Hopper design": resident_by("sm90")}
+    for name, fn in res_variants.items():
+        fn()
+        check(torch.equal(out, plain()), f"resident, {name}, != plain at M={M_MAIN}")
+    res_ms, res_reads = in_turns(res_variants)
+    log(f"stencil_sum_resident M={M_MAIN} T={T_MAIN} g={G_MAIN}, in turns: "
+        + "; ".join(f"{name} {res_ms[name]:.4f} ms (readings "
+                    f"{', '.join(f'{t:.4f}' for t in res_reads[name])})"
+                    for name in res_variants)
+        + f"; bound {b_ms:.4f} ms by {b_by}")
+    kernels.append(dict(name="stencil_sum_resident", ms=res_ms["Hopper design"],
                         plain_ms=cuda_ms(plain, reps=3, inner=1),
                         max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
                         library_ms=cuda_ms(lambda: F.conv3d(halo5, w5))))
@@ -946,25 +1122,57 @@ def main() -> int:
         log(f"timestep {kind} (block curve {app.block_kind}): end to end "
             f"{1e3 * statistics.median(walls) / K_MAIN:.4f} ms, fused kernels "
             f"{k_ms:.4f} ms")
-    for kind in KINDS:  # the block curve itself, same state
+    # the block curve itself, same state: three passes in alternating
+    # order, so that the curves' differences stand beside the spread of
+    # one curve's readings
+    curve_runs = {}
+    for kind in KINDS:
         pipe = ResidentPipeline(M=M_MAIN, T=T_MAIN, g=G_MAIN, kind=kind,
                                 S=S_MAIN, device=dev)
-        st = pipe.to_blocks(cube)
-        run = pipe.run_fn(K_MAIN)
-        k_ms = cuda_ms(lambda: run(st), reps=5, inner=1) / K_MAIN
-        log(f"block curve {kind}: fused kernels {k_ms:.4f} ms/timestep")
+        curve_runs[kind] = (pipe.run_fn(K_MAIN), pipe.to_blocks(cube))
+    curve_ms = {kind: [] for kind in KINDS}
+    for pass_ in range(3):
+        for kind in KINDS if pass_ % 2 == 0 else KINDS[::-1]:
+            run, st = curve_runs[kind]
+            curve_ms[kind].append(cuda_ms(lambda: run(st), reps=5, inner=1) / K_MAIN)
+    for kind, ms in curve_ms.items():
+        log(f"block curve {kind}: fused kernels "
+            + ", ".join(f"{t:.4f}" for t in ms) + " ms/timestep (three passes)")
+    means = {kind: statistics.mean(ms) for kind, ms in curve_ms.items()}
+    between = max(means.values()) - min(means.values())
+    within = max(max(ms) - min(ms) for ms in curve_ms.values())
+    log(f"block curve: the curves' means differ by at most {between:.4f} "
+        f"ms/timestep ({100 * between / min(means.values()):.2f}%; fastest "
+        f"{min(means, key=means.get)}), one curve's passes by at most "
+        f"{within:.4f} ({100 * within / min(means.values()):.2f}%)")
+    del curve_runs
+    ts_ms = {}
     for T_, S_ in ((8, 1), (8, 2), (8, 4), (16, 1), (16, 2), (16, 4)):
         pipe = ResidentPipeline(M=M_MAIN, T=T_, g=G_MAIN, kind="hilbert", S=S_,
                                 device=dev)
         st = pipe.to_blocks(cube)
         run = pipe.run_fn(K_MAIN)
-        k_ms = cuda_ms(lambda: run(st), reps=5, inner=1) / K_MAIN
-        log(f"T={T_} S={S_}: fused kernels {k_ms:.4f} ms/timestep, modelled "
+        ts_ms[T_, S_] = k_ms = cuda_ms(lambda: run(st), reps=5, inner=1) / K_MAIN
+        o_ = torch.empty_like(st)
+        nbr_t = neighbor_table_device("hilbert", M_MAIN // T_, device=dev)
+        forced = {ov: cuda_ms(lambda: K._fused_on_card(
+            "sm90", st, w1, nbr_t, None, o_, nbr_t.shape[0], g=G_MAIN, S=S_,
+            rule="gol", bc=periodic, overlap=ov), reps=5, inner=3) / S_
+            for ov in (False, True)}
+        log(f"T={T_} S={S_}: fused kernels {k_ms:.4f} ms/timestep "
+            f"({K.fused_design(T_, G_MAIN, S_, 1)} design; one launch forced "
+            f"without overlap {forced[False]:.4f}, with {forced[True]:.4f} "
+            f"ms/timestep), modelled "
             f"{pipe.bytes_per_step(K_MAIN) / 1e6:.1f} MB/timestep, "
-            f"shared memory {pipe.smem_bytes()} B per thread block")
+            f"shared memory {pipe.smem_bytes()} B per thread block in plan()'s "
+            f"model, {K.sm90_smem_bytes(T_, G_MAIN, S_)} in the Hopper design")
     plan = ResidentPipeline.plan(M_MAIN, g=G_MAIN, kind="hilbert", n_steps=K_MAIN,
                                  device=dev)
-    log(f"plan() picks T={plan.T} S={plan.S}")
+    best = min(ts_ms, key=ts_ms.get)
+    picked = ts_ms.get((plan.T, plan.S))
+    log(f"plan() picks T={plan.T} S={plan.S} ("
+        + ("not measured" if picked is None else f"{picked:.4f} ms/timestep")
+        + f"); fastest measured T={best[0]} S={best[1]} ({ts_ms[best]:.4f})")
     st = wave.to_blocks(fields)
     run = wave.run_fn(8)
     log(f"wave C=2 S=2 neumann0: fused kernels "

@@ -23,11 +23,14 @@
 // sums are explicit fmaf, so the build's -fmad=false costs nothing here.
 //
 // Design (the simple first kernel): one thread per q row (blockDim = the q
-// block, 16..128 rows), its q row and f32 accumulator in registers; each
+// block, 1..128 rows), its q row and f32 accumulator in registers; each
 // kv tile of K and V is staged in shared memory as f32 (2 * bk * DP * 4
 // bytes, 64 KiB at bk = 128, D = 64), and every thread reads it by
 // broadcast, 16 bytes at a time. Keys are scored 16 at a time before one
 // online-softmax update. D is padded to DP (16, 32, 64 or 128) with zeros.
+// Any bk in [1, 128] runs (the reference runs every block that divides
+// the sequence): where bk is not a multiple of 16, the last chunk's keys
+// past the tile read its last row, with their scores masked to -inf.
 //
 // What bounds it on an H100: at the prefill's shape (BH = 60, S = 2048,
 // D = 64, causal, bf16) the function needs 4 * D * BH * S(S+1)/2 = 3.2e10
@@ -135,7 +138,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float mc = -INFINITY;
 #pragma unroll
       for (int jj = 0; jj < KC; ++jj) {
-        const float* kr = ks + (j0 + jj) * DP;
+        const float* kr = ks + min(j0 + jj, bk - 1) * DP;
         float dot = 0.f;
 #pragma unroll
         for (int c = 0; c < DP; c += 4) {
@@ -158,7 +161,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int jj = 0; jj < KC; ++jj) {
         const float p = expf(s[jj] - m_new);
         l += p;
-        const float* vr = vs + (j0 + jj) * DP;
+        const float* vr = vs + min(j0 + jj, bk - 1) * DP;
 #pragma unroll
         for (int c = 0; c < DP; c += 4) {
           const float4 vv = *reinterpret_cast<const float4*>(vr + c);
@@ -210,7 +213,7 @@ extern "C" {
 
 // q (bh, sq, d), k and v (bh, sk, d), o (bh, sq, d), contiguous, all of
 // one dtype (0: f32, 1: bf16), 16-byte aligned. d a multiple of 8 up to
-// 128; bq and bk multiples of 16 up to 128 dividing sq and sk. plan int32
+// 128; bq and bk in [1, 128] dividing sq and sk. plan int32
 // [q_order (sq/bq) | row_ptr (sq/bq + 1) | cols]. The wrapper checks all
 // of this; the kernel trusts it.
 int repro_flash_attention_fwd(const void* q, const void* k, const void* v,
@@ -219,8 +222,8 @@ int repro_flash_attention_fwd(const void* q, const void* k, const void* v,
                               float scale, int dtype, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   auto pl = static_cast<const int*>(plan);
-  if (d < 8 || d > 128 || d % 8 || bq < 16 || bq > MAX_ROWS || bq % 16 ||
-      bk < 16 || bk > 128 || bk % KC || sq % bq || sk % bk)
+  if (d < 8 || d > 128 || d % 8 || bq < 1 || bq > MAX_ROWS || bk < 1 ||
+      bk > 128 || sq % bq || sk % bk)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (dtype) {
     case 0: return launch_d<float>(q, k, v, o, pl, bh, sq, sk, d, bq, bk, causal, scale, st);

@@ -1,4 +1,6 @@
 // SFC-blocked 3-D weighted stencil kernels for Hopper (sm_90a).
+// (fused_kernel now serves the shapes csrc/stencil3d_sm90.cu does not take:
+// T outside {8, 16}, g outside {1, 2}, or three windows too large.)
 //
 // Three kernels, behind a plain C interface loaded with ctypes
 // (kernels/_build.py, kernels/stencil3d.py):

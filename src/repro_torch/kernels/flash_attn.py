@@ -38,10 +38,11 @@ from repro_torch.core.orderings import path_index_2d
 from . import _build, ref
 
 __all__ = ["SCHEDULES", "build_schedule", "flash_attention_fwd", "flash_design",
-           "schedule_plan"]
+           "pad_head_dim", "schedule_plan"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_BLOCK = 128
+_MAX_HEAD_DIM = 128
 _SM90_SIZES = (64, 128)  # D, block_q and block_k of the sm90 design
 SCHEDULES = ("row_major", "morton", "hilbert")
 
@@ -132,12 +133,12 @@ def _check(q, k, v, block_q: int, block_k: int, schedule: str) -> None:
             or v.device != q.device:
         raise ValueError(f"q, k and v must lie on one cuda or cpu device, got "
                          f"{q.device}, {k.device}, {v.device}")
-    if D % 8 or not 8 <= D <= 128:
-        raise ValueError(f"head dim {D} is not a multiple of 8 in [8, 128]")
+    if not 1 <= D <= _MAX_HEAD_DIM:
+        raise ValueError(f"head dim {D} is not in [1, {_MAX_HEAD_DIM}]")
     for name, b, s in (("block_q", block_q, Sq), ("block_k", block_k, k.shape[1])):
-        if b % 16 or not 16 <= b <= _MAX_BLOCK or s % b:
-            raise ValueError(f"{name}={b} must be a multiple of 16 in "
-                             f"[16, {_MAX_BLOCK}] dividing the sequence ({s})")
+        if not 1 <= b <= _MAX_BLOCK or s % b:
+            raise ValueError(f"{name}={b} must lie in [1, {_MAX_BLOCK}] and "
+                             f"divide the sequence ({s})")
     if BH > 65535:
         raise ValueError(f"BH={BH} exceeds the grid's 65535 rows")
 
@@ -149,9 +150,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Heads are pre-folded into the batch axis (ops.py handles GQA). f32 or
     bf16, arithmetic in f32, output in q's dtype; the causal diagonal is
-    aligned to the end and a row with no key gives 0. D is a multiple of
-    8 up to 128; block_q and block_k are multiples of 16 up to 128 that
-    divide Sq and Sk (ops.py picks them). Anything else raises. The
+    aligned to the end and a row with no key gives 0. D is at most 128;
+    block_q and block_k are at most 128 and divide Sq and Sk (ops.py
+    picks them, as the JAX package does). Anything else raises. The
     output does not depend on ``schedule`` beyond f32 rounding. On the
     card :func:`flash_design` picks the kernel; a failed build or launch
     raises.
@@ -166,8 +167,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def _fwd_on_card(design: str, q, k, v, causal, block_q: int, block_k: int,
                  schedule: str) -> torch.Tensor:
     """Launch ``design``'s kernel on checked CUDA tensors (its own limits
-    are checked again in C, which returns an error that raises)."""
-    BH, Sq, D = q.shape
+    are checked again in C, which returns an error that raises). A head
+    dim that is not a multiple of 8 is zero-padded for the kernel's
+    16-byte loads (:func:`pad_head_dim`); the scale stays 1/sqrt(D) of
+    the true D and the padded columns are sliced off the output."""
+    D = q.shape[2]
+    q, k, v = pad_head_dim(q, k, v)
+    BH, Sq, Dp = q.shape
     Sk = k.shape[1]
     nq, nk, offs = Sq // block_q, Sk // block_k, Sk - Sq
     plan = device_constant(
@@ -181,10 +187,21 @@ def _fwd_on_card(design: str, q, k, v, causal, block_q: int, block_k: int,
     out = torch.empty_like(q)
     lib, fn = _lib(design)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            plan.data_ptr(), BH, Sq, Sk, D, block_q, block_k, int(bool(causal)),
+            plan.data_ptr(), BH, Sq, Sk, Dp, block_q, block_k, int(bool(causal)),
             1.0 / math.sqrt(D))
     if design == "simple":
         args += (_DTYPES[q.dtype],)
     _build.launch(lib, "flash_attention_fwd", fn, q.device, *args)
     _build.FLASH_DESIGN_LAUNCHES[design] += 1
-    return out
+    return out if Dp == D else out[..., :D].contiguous()
+
+
+def pad_head_dim(q, k, v):
+    """q, k and v with the head dim zero-padded to a multiple of 8 (the
+    unchanged tensors when it is one). Zero columns add nothing to the
+    scores q·k, and the output's padded columns are zero."""
+    D = q.shape[-1]
+    pad = -D % 8
+    if not pad:
+        return q, k, v
+    return tuple(torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))

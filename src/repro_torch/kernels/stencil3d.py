@@ -10,11 +10,19 @@ minus ``interpret``, plus ``out=``:
                          assembled in the kernel from the neighbour table;
 ``stencil_sum_blocks``   the repack form's tap sum over halo-extended blocks.
 
-The kernels live in ``csrc/stencil3d.cu`` (one thread block per output
-block, the window in shared memory). The device decides the path: a CUDA
-tensor launches the kernel or raises, a CPU tensor runs the plain version
-in kernels/ref.py. Each launch adds one to ``LAUNCHES[name]`` (the
-port's one counter, kernels/_build.py). Stores are
+The fused step and the resident sum have two CUDA designs, and
+:func:`fused_design` (a pure function of T, g, S and C) picks one:
+``csrc/stencil3d_sm90.cu`` (compile-time shapes, register tiling along k,
+and, where that costs no thread block per SM, persistent thread blocks
+that prefetch the next window with cp.async) for
+T ∈ {8, 16}, g ∈ {1, 2}, S·g | T, C ∈ {1, 2} where its shared memory fits;
+``csrc/stencil3d.cu`` (one thread block per output block, the window in
+shared memory) for every other shape and for the repack form's tap sum.
+The device decides the path: a CUDA tensor launches a kernel or raises,
+a CPU tensor runs the plain version in kernels/ref.py. Each launch adds
+one to ``LAUNCHES[name]`` (the port's one counter, kernels/_build.py) and
+the fused and resident launches one to ``STENCIL_DESIGN_LAUNCHES[design]``.
+Stores are
 f32 only; every other dtype raises. Outputs are allocated here (or passed
 as ``out=``, which must not share memory with the input) and kernels run
 on the current stream without synchronising.
@@ -34,8 +42,8 @@ from . import _build, ref
 from .rules import RULES, get_rule
 
 __all__ = ["stencil_sum_blocks", "stencil_sum_resident", "stencil_step_fused",
-           "LAUNCHES", "reset_launches", "SMEM_LIMIT_BYTES",
-           "fused_smem_bytes", "halo_smem_bytes"]
+           "LAUNCHES", "reset_launches", "SMEM_LIMIT_BYTES", "fused_design",
+           "fused_smem_bytes", "halo_smem_bytes", "sm90_smem_bytes"]
 
 LAUNCHES, reset_launches = _build.LAUNCHES, _build.reset_launches
 
@@ -43,6 +51,8 @@ LAUNCHES, reset_launches = _build.LAUNCHES, _build.reset_launches
 SMEM_LIMIT_BYTES = 232_448
 # The fused kernel's static tables: 27 neighbour ids and 6 face flags.
 _TABLE_SMEM_BYTES = 4 * (27 + 6)
+# What the Hopper design (csrc/stencil3d_sm90.cu) takes.
+_SM90_T, _SM90_G, _SM90_C = (8, 16), (1, 2), (1, 2)
 
 _RULE_IDS = {"gol": 0, "jacobi": 1, "identity": 2, "wave": 3}
 _BC_IDS = {"periodic": 0, "dirichlet": 1, "neumann0": 2}
@@ -53,6 +63,28 @@ def fused_smem_bytes(T: int, g: int, S: int, *, fields: int = 1,
     """Shared memory of one fused-kernel thread block: two C·(T+2Sg)³
     windows that the substeps ping-pong between, plus the index tables."""
     return itemsize * 2 * fields * (T + 2 * S * g) ** 3 + _TABLE_SMEM_BYTES
+
+
+def sm90_smem_bytes(T: int, g: int, S: int, *, fields: int = 1,
+                    itemsize: int = 4) -> int:
+    """Shared memory of one thread block of the Hopper design: three
+    C·(T+2Sg)³ windows (the current block's, its substep partner, the next
+    block's, prefetched) plus two rows of the index tables."""
+    return itemsize * 3 * fields * (T + 2 * S * g) ** 3 + 2 * _TABLE_SMEM_BYTES
+
+
+def fused_design(T: int, g: int, S: int, C: int) -> str:
+    """The CUDA design ``stencil_step_fused`` launches for blocks of edge
+    T, radius g, S substeps and C channels (``stencil_sum_resident`` is S=1,
+    C=1): ``"sm90"`` (``csrc/stencil3d_sm90.cu``) for T ∈ {8, 16},
+    g ∈ {1, 2}, S·g | T and C ∈ {1, 2} where :func:`sm90_smem_bytes` fits
+    in :data:`SMEM_LIMIT_BYTES`; ``"simple"`` (``csrc/stencil3d.cu``) for
+    every other case. Nothing else, and never a failure, decides it."""
+    if T in _SM90_T and g in _SM90_G and C in _SM90_C and S >= 1 \
+            and T % (S * g) == 0 \
+            and sm90_smem_bytes(T, g, S, fields=C) <= SMEM_LIMIT_BYTES:
+        return "sm90"
+    return "simple"
 
 
 def halo_smem_bytes(T: int, g: int, itemsize: int = 4) -> int:
@@ -72,6 +104,19 @@ def _lib() -> ctypes.CDLL:
     for fn in (lib.repro_stencil_step_fused_f32,
                lib.repro_stencil_sum_resident_f32,
                lib.repro_stencil_sum_blocks_f32):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _lib_sm90() -> ctypes.CDLL:
+    lib = _build.library("stencil3d_sm90")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.repro_stencil_step_fused_sm90_f32.argtypes = [
+        p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, f, f, f, i, p]
+    lib.repro_stencil_sum_resident_sm90_f32.argtypes = [p, p, p, p, i, i, i, i, p]
+    for fn in (lib.repro_stencil_step_fused_sm90_f32,
+               lib.repro_stencil_sum_resident_sm90_f32):
         fn.restype = ctypes.c_int
     return lib
 
@@ -143,8 +188,20 @@ def _emit(result: torch.Tensor, out: torch.Tensor | None) -> torch.Tensor:
     return out
 
 
-def _launch(name: str, fn, device: torch.device, *args) -> None:
-    _build.launch(_lib(), name, fn, device, *args)
+def _launch(name: str, design: str | None, device: torch.device, *args) -> None:
+    """Launch ``name``'s kernel of ``design`` ("sm90", "simple", or None
+    for the repack sum, which has one design) and count it."""
+    lib = _lib_sm90() if design == "sm90" else _lib()
+    fn = getattr(lib, f"repro_{name}{'_sm90' if design == 'sm90' else ''}_f32")
+    _build.launch(lib, name, fn, device, *args)
+    if design is not None:
+        _build.STENCIL_DESIGN_LAUNCHES[design] += 1
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it if its data is not 16-byte aligned (the
+    Hopper design moves 16 bytes at a time)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def stencil_step_fused(store: torch.Tensor, weights: torch.Tensor,
@@ -213,13 +270,38 @@ def stencil_step_fused(store: torch.Tensor, weights: torch.Tensor,
                          f"{sorted(_RULE_IDS)}")
     if out is None:
         out = torch.empty(out_shape, dtype=torch.float32, device=dev)
-    axes = bc.axes
-    _launch("stencil_step_fused", _lib().repro_stencil_step_fused_f32, dev,
-            store.data_ptr(), out.data_ptr(), weights.data_ptr(),
-            nbr.data_ptr(), bnd.data_ptr() if bc.clamped else None,
-            nb, nb_src, out_nb, T, g, S, _RULE_IDS[r.name],
-            *(_BC_IDS[a.kind] for a in axes), *(float(a.value) for a in axes))
+    _fused_on_card(fused_design(T, g, S, C), store, weights, nbr,
+                   bnd if bc.clamped else None, out, out_nb, g=g, S=S,
+                   rule=r.name, bc=bc)
     return out
+
+
+def _fused_on_card(design: str, store, weights, nbr, bnd, out, out_nb: int, *,
+                   g: int, S: int, rule: str, bc,
+                   overlap: bool | None = None) -> None:
+    """Launch ``design``'s fused kernel on checked CUDA tensors (its own
+    limits are checked again in C, which returns an error that raises).
+    The Hopper design runs with its overlap (persistent thread blocks that
+    prefetch the next window) where that costs no thread block per SM;
+    ``overlap=True`` or ``False`` forces either way, for timing."""
+    nb, nb_src, T = nbr.shape[0], store.shape[-4], store.shape[-1]
+    dest, dest_nb = out, out_nb
+    extra = ()
+    if design == "sm90":
+        store = _aligned(store)
+        if out.data_ptr() % 16:
+            dest = torch.empty(out.shape, dtype=torch.float32, device=out.device)
+            dest_nb = nb
+        extra = (-1 if overlap is None else int(overlap),)
+    axes = bc.axes
+    _launch("stencil_step_fused", design, store.device,
+            store.data_ptr(), dest.data_ptr(), weights.data_ptr(),
+            nbr.data_ptr(), None if bnd is None else bnd.data_ptr(),
+            nb, nb_src, dest_nb, T, g, S, _RULE_IDS[rule],
+            *(_BC_IDS[a.kind] for a in axes), *(float(a.value) for a in axes),
+            *extra)
+    if dest is not out:
+        out.copy_(dest)
 
 
 def stencil_sum_resident(store: torch.Tensor, weights: torch.Tensor,
@@ -253,10 +335,26 @@ def stencil_sum_resident(store: torch.Tensor, weights: torch.Tensor,
         return _emit(ref.stencil_sum_resident_ref(store, weights, nbr), out)
     if out is None:
         out = torch.empty((nb, T, T, T), dtype=torch.float32, device=dev)
-    _launch("stencil_sum_resident", _lib().repro_stencil_sum_resident_f32, dev,
-            store.data_ptr(), out.data_ptr(), weights.data_ptr(),
-            nbr.data_ptr(), nb, T, g)
+    _resident_on_card(fused_design(T, g, 1, 1), store, weights, nbr, out, g=g)
     return out
+
+
+def _resident_on_card(design: str, store, weights, nbr, out, *, g: int,
+                      overlap: bool | None = None) -> None:
+    """Launch ``design``'s resident tap sum on checked CUDA tensors
+    (``overlap`` as in :func:`_fused_on_card`)."""
+    nb, T = store.shape[0], store.shape[1]
+    dest, extra = out, ()
+    if design == "sm90":
+        store = _aligned(store)
+        if out.data_ptr() % 16:
+            dest = torch.empty_like(out)
+        extra = (-1 if overlap is None else int(overlap),)
+    _launch("stencil_sum_resident", design, store.device, store.data_ptr(),
+            dest.data_ptr(), weights.data_ptr(), nbr.data_ptr(), nb, T, g,
+            *extra)
+    if dest is not out:
+        out.copy_(dest)
 
 
 def stencil_sum_blocks(blocks: torch.Tensor, weights: torch.Tensor, *,
@@ -284,6 +382,6 @@ def stencil_sum_blocks(blocks: torch.Tensor, weights: torch.Tensor, *,
         return _emit(ref.stencil_sum_ref(blocks, weights), out)
     if out is None:
         out = torch.empty((nb, T, T, T), dtype=torch.float32, device=dev)
-    _launch("stencil_sum_blocks", _lib().repro_stencil_sum_blocks_f32, dev,
-            blocks.data_ptr(), out.data_ptr(), weights.data_ptr(), nb, T, g)
+    _launch("stencil_sum_blocks", None, dev, blocks.data_ptr(),
+            out.data_ptr(), weights.data_ptr(), nb, T, g)
     return out

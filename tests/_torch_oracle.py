@@ -474,6 +474,21 @@ def flash_inputs(shape, seed: int) -> tuple[np.ndarray, ...]:
             rng.normal(size=(BH, Sk, D)).astype(np.float32))
 
 
+# ops.flash_attention at sequence lengths whose blocks, halved from 128
+# until they divide S, are not multiples of 16 (S=100 takes one block of
+# 100), and at a head dim that is not a multiple of 8: (S, Hq, Hkv, D)
+BLOCK_CASES = tuple((S, 3, 1, 64) for S in (8, 12, 24, 100)) + ((24, 2, 1, 12),)
+
+
+def any_block_inputs(case) -> tuple[np.ndarray, ...]:
+    """q (1, Hq, S, D) and k, v (1, Hkv, S, D), f32 normals."""
+    S, hq, hkv, D = case
+    rng = np.random.default_rng(S + D)
+    return (rng.normal(size=(1, hq, S, D)).astype(np.float32),
+            rng.normal(size=(1, hkv, S, D)).astype(np.float32),
+            rng.normal(size=(1, hkv, S, D)).astype(np.float32))
+
+
 def gqa_inputs() -> tuple[np.ndarray, ...]:
     rng = np.random.default_rng(17)
     return (rng.normal(size=GQA_Q).astype(np.float32),
@@ -482,6 +497,8 @@ def gqa_inputs() -> tuple[np.ndarray, ...]:
 
 
 LM_SEED, LM_B, LM_S = 5, 2, 16
+# a prompt length whose flash block (12) is not a multiple of 16
+LM_S_ODD = 12
 GREEDY_P, GREEDY_NEW = 8, 6
 # the 4-layer tiny dense config of tests/test_models.py (GQA 4 -> 2 heads)
 TINY_DENSE = dict(name="tiny-dense", family="dense", n_layers=4, d_model=64,
@@ -540,6 +557,11 @@ def _recipe_flash() -> dict[str, np.ndarray]:
     q, k, v = (jnp.asarray(a) for a in gqa_inputs())
     res["gqa"] = np.asarray(ops.flash_attention(q, k, v, True, "hilbert", 64, 64))
     res["gqa_fold_k"] = np.asarray(ops._fold_gqa(q, k, v)[1])
+    for case in BLOCK_CASES:
+        q, k, v = (jnp.asarray(a) for a in any_block_inputs(case))
+        for causal in (True, False):
+            res[f"any_block/{case}/{int(causal)}"] = np.asarray(
+                ops.flash_attention(q, k, v, causal, "morton", 128, 128))
     return res
 
 
@@ -564,6 +586,10 @@ def _recipe_lm() -> dict[str, np.ndarray]:
         batch = {"tokens": toks, "labels": toks}
         res[f"forward/{name}"] = np.asarray(m.forward(params, batch)[0])
         res[f"prefill/{name}"] = np.asarray(m.prefill(params, batch))
+        if name == "smoke":
+            odd = jnp.asarray(lm_tokens(cfg.vocab, (LM_B, LM_S_ODD), LM_SEED))
+            res[f"prefill_s{LM_S_ODD}/{name}"] = np.asarray(
+                m.prefill(params, {"tokens": odd, "labels": odd}))
         plain = build_model(dataclasses.replace(cfg, use_flash_kernel=False))
         res[f"forward_sdpa/{name}"] = np.asarray(plain.forward(params, batch)[0])
         if cfg.activation_dtype != "float32":

@@ -12,20 +12,25 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_oracle import (FLASH_BF16_BLOCK, FLASH_BF16_SHAPE, FLASH_SCHEDULES,
-                           FLASH_SHAPES, SCHEDULE_GRIDS, flash_inputs,
-                           gqa_inputs, reference_arrays)
+from _torch_oracle import (BLOCK_CASES, FLASH_BF16_BLOCK, FLASH_BF16_SHAPE,
+                           FLASH_SCHEDULES, FLASH_SHAPES, SCHEDULE_GRIDS,
+                           any_block_inputs, flash_inputs, gqa_inputs,
+                           reference_arrays)
 from repro.kernels import ops as jops
 from repro_torch.configs import smollm_360m
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.flash_attn import (build_schedule, flash_attention_fwd,
-                                            flash_design, schedule_plan)
+                                            flash_design, pad_head_dim,
+                                            schedule_plan)
 
 # The plain version against the Pallas kernel in f32: both are f32
 # softmax attention, summed in another order (dense against online, in
 # 16-blocks): the JAX package's own tolerance (tests/test_kernels.py).
 F32_TOL = 2e-4
+# ops.flash_attention at blocks that are not multiples of 16: the plain
+# version against the Pallas kernel, one or two blocks per head at S <= 100
+ANY_BLOCK_TOL = 1e-5
 # bf16: both compute in f32 from the same bf16 inputs and round the output
 # once, so they differ by at most one bf16 unit in the last place
 # (2^-7 of the value) where the f32 results straddle a rounding boundary.
@@ -109,6 +114,38 @@ def test_gqa_flash_attention_matches_jax(ref_flash):
                                   ref_flash["gqa_fold_k"])
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("case", BLOCK_CASES,
+                         ids=[f"S{c[0]}-D{c[3]}" for c in BLOCK_CASES])
+def test_flash_attention_takes_every_block_the_reference_takes(ref_flash, case,
+                                                               causal):
+    """Blocks halved from 128 until they divide S (8, 12, 24 and 100),
+    and D=12: the JAX package runs them, and so does the port."""
+    q, k, v = _t(*any_block_inputs(case))
+    got = tops.flash_attention(q, k, v, causal, "morton", 128, 128)
+    assert got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), ref_flash[f"any_block/{case}/{int(causal)}"],
+                               rtol=ANY_BLOCK_TOL, atol=ANY_BLOCK_TOL)
+
+
+def test_padded_head_dim_leaves_the_attention_unchanged():
+    """The card's route for a head dim that is not a multiple of 8: zero
+    columns padded to the next multiple, scores scaled by the true D, the
+    padded output columns zero and sliced off."""
+    q, k, v = _t(*flash_inputs((2, 24, 24, 12), 7))
+    qp, kp, vp = pad_head_dim(q, k, v)
+    assert qp.shape == (2, 24, 16) and kp.shape == vp.shape == (2, 24, 16)
+    assert all(torch.equal(a[..., :12], b) and not a[..., 12:].any()
+               for a, b in ((qp, q), (kp, k), (vp, v)))
+    p = torch.softmax(qp @ kp.transpose(1, 2) / np.sqrt(12), dim=-1)
+    out = p @ vp
+    assert not out[..., 12:].any()
+    torch.testing.assert_close(out[..., :12], ref.flash_attention_ref(q, k, v, False),
+                               rtol=1e-6, atol=1e-6)
+    q8 = q[..., :8]
+    assert all(a is b for a, b in zip(pad_head_dim(q8, q8, q8), (q8,) * 3))
+
+
 @pytest.mark.parametrize("s,pref", [(2048, 128), (16, 128), (96, 64), (48, 128),
                                     (7, 64), (1, 64), (32768, 128)])
 def test_pick_block_equals_jax(s, pref):
@@ -139,8 +176,8 @@ def test_wrapper_checks_and_counts_no_launch_on_cpu():
     before = _build.LAUNCHES["flash_attention_fwd"]
     flash_attention_fwd(q, k, v, block_q=32, block_k=64)
     assert _build.LAUNCHES["flash_attention_fwd"] == before
-    for kw in ({"block_q": 8}, {"block_k": 24}, {"block_q": 256},
-               {"block_k": 128}):
+    for kw in ({"block_q": 48}, {"block_k": 24}, {"block_q": 256},
+               {"block_k": 128}, {"block_q": 0}):
         with pytest.raises(ValueError, match="block"):
             flash_attention_fwd(q, k, v, **{"block_q": 16, "block_k": 16, **kw})
     with pytest.raises(ValueError, match="schedule"):
@@ -148,7 +185,8 @@ def test_wrapper_checks_and_counts_no_launch_on_cpu():
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         flash_attention_fwd(q, k.double(), v)
     with pytest.raises(ValueError, match="head dim"):
-        flash_attention_fwd(q[..., :12], k[..., :12], v[..., :12])
+        wide = torch.zeros(2, 64, 136)
+        flash_attention_fwd(wide, wide, wide)
     with pytest.raises(ValueError, match="BH or D"):
         flash_attention_fwd(q, k[:1], v[:1])
     with pytest.raises(NotImplementedError, match="forward only"):

@@ -15,8 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_oracle import (GREEDY_NEW, GREEDY_P, LM_B, LM_S, LM_SEED,
-                           lm_configs, lm_tokens, reference_arrays)
+from _torch_oracle import (GREEDY_NEW, GREEDY_P, LM_B, LM_S, LM_S_ODD,
+                           LM_SEED, lm_configs, lm_tokens, reference_arrays)
 from repro_torch.configs.registry import (ARCHS, SHAPES, ShapeSpec,
                                           concrete_batch, get_config, get_smoke)
 from repro_torch.interop import lm_params_from_numpy
@@ -115,6 +115,16 @@ def test_prefill_matches_jax(ref_lm, models, name):
     assert got.shape == (LM_B, CFGS[name].vocab)
     np.testing.assert_allclose(got.numpy(), ref_lm[f"prefill/{name}"],
                                rtol=_tol(name), atol=_tol(name))
+
+
+def test_prefill_at_a_block_of_12_matches_jax(ref_lm, models):
+    """SMOKE with the flash kernel's path on, at S=12: the block halved
+    from 128 until it divides S is 12, which the JAX package runs."""
+    toks = torch.from_numpy(lm_tokens(CFGS["smoke"].vocab, (LM_B, LM_S_ODD),
+                                      LM_SEED))
+    got = models["smoke"].prefill({"tokens": toks})
+    np.testing.assert_allclose(got.numpy(), ref_lm[f"prefill_s{LM_S_ODD}/smoke"],
+                               rtol=F32_TOL, atol=F32_TOL)
 
 
 @pytest.mark.parametrize("name", F32_NAMES)
