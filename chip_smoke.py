@@ -12,7 +12,9 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    SASS of the Hopper flash design (``cuobjdump -sass`` from nvcc's own
    ``bin/``) must hold ``HGMMA`` (wgmma on the tensor cores) and
    ``UTMALDG`` (TMA loads); that of the Hopper stencil design must hold
-   its 44 kernels and no ``FFMA`` (no contracted multiply-add);
+   its 44 kernels and no ``FFMA`` (no contracted multiply-add), that of
+   the Hopper repack design its 12 kernels, no ``FFMA`` and ``UBLKCP``
+   (its 1-D bulk copies);
 2. every kernel against its plain PyTorch version on the card, at M=64:
    4 orderings × S ∈ {1, 2, 4} × {gol, jacobi, wave} × {periodic,
    dirichlet, neumann0, mixed}, plus g=2 with T=8, S=2, and the resident
@@ -20,7 +22,13 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    instance of the Hopper stencil design (``fused_design``: T ∈ {8, 16},
    g ∈ {1, 2}, S·g | T, C ∈ {1, 2} where it fits) under each of its rules
    and the four boundaries at M=32, random weights but for gol, also
-   forced with and without its overlap; every fused and resident case asserts the design
+   forced with and without its overlap; ``stencil_sum_blocks`` on f32,
+   bf16 and f16 blocks for each (T, g) above, with the neighbour count's
+   and random weights, under the design ``blocks_design`` gives and
+   forced onto the first design where the Hopper design runs; fault F2:
+   the fused step on bf16 and f16 stores (gol and wave, periodic and
+   neumann0, S ∈ {1, 2}) and the resident sum on them, all of the first
+   design; every fused, resident and repack case asserts the design
    that ran it, by the per-design launch count; the
    fused kernel on extended stores (core + shell blocks filled by the
    distributed path's own exchange and scatter, 2×2×2 local mesh of M=64
@@ -41,6 +49,8 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    (D=128, 64×32 blocks, its widest build); the simple design at the
    blocks ``ops._pick_block`` gives S ∈ {12, 24, 100} from 128 (12, 24
    and 100), causal and not, in f32 and bf16, and at D=12 (padded to 16);
+   the simple design at D ∈ {160, 256} (fault F1: two threads a q row),
+   f32 and bf16, causal and not, blocks 64 and 128;
    and one launch at S=32768,
    BH=15 whose last 256 rows must equal the plain version on those
    queries (the diagonal is aligned to the end) — within one bf16 unit in
@@ -49,11 +59,12 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    schedules;
 3. the main paths at full size (``repro_torch.configs.gol3d.CHIP_*``),
    each with the launch counts set to 0 just before and read just after,
-   and every fused and resident launch of the Hopper stencil design:
+   and every fused, resident and repack launch of a Hopper design:
    ``Gol3d.run_resident(16)`` at M=256, T=8, S=4 for the four orderings
    (must equal ``reference_run(16)``; 4 fused launches each); the wave
    pipeline at M=256, S=2, neumann0 (8 steps of ``fields_step_ref``); the
-   repack path ``Gol3d.run(2)`` at M=128; the resident tap sum
+   repack path ``Gol3d.run(2)`` at M=128 (both launches of the Hopper
+   repack design); the resident tap sum
    ``stencil_sum_resident`` on the M=256 store; the distributed path
    ``Gol3d.run_distributed(mesh, 16)`` at global M=256, S=4, for the four
    orderings on each mesh of ``CHIP_MESHES`` (1×1×1: one M=256 shard;
@@ -95,7 +106,11 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    version, the simple design on the same bf16 tensors, and SDPA (the
    folded tensors viewed as (B, 15, S, D); a yardstick the port never
    calls), against the bound of its operations at 989 TFLOP/s (bf16),
-   with TFLOP/s; the simple design in f32 at S=2048 against 67 TFLOP/s;
+   with TFLOP/s; the simple design in f32 at S=2048 against 67 TFLOP/s,
+   and at D=256 (BH=16, S=2048, bf16) beside SDPA and its bound;
+   ``stencil_sum_blocks`` in both designs, in turns, at M=128 and at
+   M=256 in f32 and bf16, beside conv3d and its bound; the repack path's
+   ms per timestep (host clock) and the kernel's share of it;
    prefill ms and tokens/s
    with the kernel and with plain attention, decode ms per step and
    tokens/s (median of 5 after a warm-up), and the kernel's share of the
@@ -126,7 +141,7 @@ F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 SOURCES = {"stencil_step_fused": "src/repro_torch/kernels/csrc/stencil3d_sm90.cu",
            "stencil_sum_resident": "src/repro_torch/kernels/csrc/stencil3d_sm90.cu",
-           "stencil_sum_blocks": "src/repro_torch/kernels/csrc/stencil3d.cu",
+           "stencil_sum_blocks": "src/repro_torch/kernels/csrc/stencil3d_blocks_sm90.cu",
            "gather_rows": "src/repro_torch/kernels/csrc/sfc_gather.cu",
            "flash_attention_fwd": "src/repro_torch/kernels/csrc/flash_attn_sm90.cu"}
 REPLACES = {"stencil_step_fused": "src/repro/kernels/stencil3d.py:296",
@@ -137,6 +152,11 @@ REPLACES = {"stencil_step_fused": "src/repro/kernels/stencil3d.py:296",
 BCS = ("periodic", "dirichlet", "neumann0", "mixed")
 # csrc/stencil3d_sm90.cu: 12 (T, g, S) for gol, jacobi and identity, 8 for wave
 SM90_STENCIL_KERNELS = 44
+# csrc/stencil3d_blocks_sm90.cu: (T, g) in {8, 16} x {1, 2}, f32, bf16 and f16
+SM90_BLOCKS_KERNELS = 12
+# the (T, g) pairs of the tap sums' checks: the Hopper designs' four, then
+# two that only the first designs take
+SUM_SHAPES = ((8, 1), (8, 2), (16, 1), (16, 2), (4, 1), (16, 4))
 FACES = ("k0", "k1", "i0", "i1", "j0", "j1")
 LINE = 64  # elements per gathered row (kops.sfc_gather_take's default)
 # gather_rows launches per shard and exchange round: stencil/halo.
@@ -312,6 +332,10 @@ def main() -> int:
         """fn(), one fused or resident launch of ``design``."""
         return one_launch_of(_build.STENCIL_DESIGN_LAUNCHES, design, fn, what)
 
+    def blocks_on(design, fn, what):
+        """fn(), one repack tap-sum launch of ``design``."""
+        return one_launch_of(_build.BLOCKS_DESIGN_LAUNCHES, design, fn, what)
+
     # ---------------------------------------------------------------- set-up
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -334,27 +358,39 @@ def main() -> int:
                 log(f"  ptxas {name}: {entry}")
             elif "Used" in line or "spill" in line:
                 log(f"  ptxas {name}:   {line.split(':', 1)[-1].strip()}")
+    def sass_of(name):
+        return subprocess.run(
+            [str(Path(_build.nvcc_path()).resolve().parent / "cuobjdump"), "-sass",
+             str(_build._lib_path(name))],
+            capture_output=True, text=True, check=True, timeout=300).stdout
+
     # the Hopper flash design really runs on the tensor cores and TMA
-    sass = subprocess.run(
-        [str(Path(_build.nvcc_path()).resolve().parent / "cuobjdump"), "-sass",
-         str(_build._lib_path("flash_attn_sm90"))],
-        capture_output=True, text=True, check=True, timeout=300).stdout
+    sass = sass_of("flash_attn_sm90")
     n_hgmma, n_tma = sass.count("HGMMA"), sass.count("UTMALDG")
     check(n_hgmma > 0 and n_tma > 0,
           f"flash_attn_sm90 SASS holds {n_hgmma} HGMMA and {n_tma} UTMALDG")
     log(f"flash_attn_sm90 SASS: {n_hgmma} HGMMA, {n_tma} UTMALDG instructions")
     # the Hopper stencil design: every instance built, and no contracted
     # multiply-add anywhere (bit-exactness rests on separate FMUL and FADD)
-    sass = subprocess.run(
-        [str(Path(_build.nvcc_path()).resolve().parent / "cuobjdump"), "-sass",
-         str(_build._lib_path("stencil3d_sm90"))],
-        capture_output=True, text=True, check=True, timeout=300).stdout
+    sass = sass_of("stencil3d_sm90")
     n_kern = len(re.findall(r"Function : \S*fused_sm90_kernel", sass))
     n_ffma, n_fmul = sass.count("FFMA"), sass.count("FMUL")
     check(n_kern == SM90_STENCIL_KERNELS and n_ffma == 0 and n_fmul > 0,
           f"stencil3d_sm90 SASS holds {n_kern} kernels, {n_ffma} FFMA")
     log(f"stencil3d_sm90 SASS: {n_kern} kernels, {n_ffma} FFMA, {n_fmul} FMUL, "
         f"{sass.count('LDGSTS')} LDGSTS (cp.async) instructions")
+    # the Hopper repack design: every instance built, no contracted
+    # multiply-add, and its windows fed by 1-D bulk copies (cp.async.bulk,
+    # UBLKCP in the SASS)
+    sass = sass_of("stencil3d_blocks_sm90")
+    n_kern = len(re.findall(r"Function : \S*blocks_sm90_kernel", sass))
+    n_ffma, n_fmul, n_blk = sass.count("FFMA"), sass.count("FMUL"), sass.count("UBLKCP")
+    check(n_kern == SM90_BLOCKS_KERNELS and n_ffma == 0 and n_fmul > 0 and n_blk > 0,
+          f"stencil3d_blocks_sm90 SASS holds {n_kern} kernels, {n_ffma} FFMA, "
+          f"{n_blk} UBLKCP; its bulk and TMA opcodes: "
+          f"{sorted(set(re.findall(r'[A-Z]*(?:BLK|BULK|TMA)[A-Z.0-9]*', sass)))}")
+    log(f"stencil3d_blocks_sm90 SASS: {n_kern} kernels, {n_ffma} FFMA, {n_fmul} "
+        f"FMUL, {n_blk} UBLKCP (bulk copy) instructions")
 
     # ------------------------------------------- kernels vs plain, on the card
     t0 = time.perf_counter()
@@ -381,7 +417,7 @@ def main() -> int:
               f"{(got - want).abs().max().item()}")
         n_cmp += 1
     for kind in KINDS:
-        for T, g in ((8, 1), (8, 2), (16, 1), (16, 2), (4, 1), (16, 4)):
+        for T, g in SUM_SHAPES:
             cube = cube_for("jacobi", M)[0]
             w = uniform_weights(g, dev)
             store = blockize(cube, T, kind)
@@ -390,7 +426,9 @@ def main() -> int:
                              lambda: K.stencil_sum_resident(store, w, nbr, g=g),
                              f"resident {kind} T={T} g={g}")
             halo = blockize_with_halo(cube, T, g, kind)
-            rep = K.stencil_sum_blocks(halo, w, g=g)
+            rep = blocks_on(K.blocks_design(T, g),
+                            lambda: K.stencil_sum_blocks(halo, w, g=g),
+                            f"blocks {kind} T={T} g={g}")
             check(torch.equal(res, rep), f"resident != blocks {kind} T={T} g={g}")
             check(torch.equal(res, ref.stencil_sum_resident_ref(store, w, nbr)),
                   f"resident != plain {kind} T={T} g={g}")
@@ -399,6 +437,84 @@ def main() -> int:
             n_cmp += 3
     sync()
     log(f"kernels vs plain at M={M}: {n_cmp} comparisons bit-equal "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # stencil_sum_blocks in f32, bf16 and f16 blocks, with the neighbour
+    # count's and with random weights, under the design blocks_design
+    # gives, and forced onto the first design where the Hopper design runs
+    # (the Hopper design has no instance for the last two shapes): both
+    # designs bit-equal to the plain version, f32 out
+    t0 = time.perf_counter()
+    n_cmp, n_sm90 = 0, 0
+    for T, g in SUM_SHAPES:
+        s_ = 2 * g + 1
+        cube = cube_for("jacobi", M)[0]
+        weights = {"count": uniform_weights(g, dev), "random": torch.from_numpy(
+            rng.normal(size=(s_, s_, s_)).astype(np.float32)).to(dev)}
+        halo32 = blockize_with_halo(cube, T, g, "hilbert")
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            halo = halo32.to(dtype)
+            design = K.blocks_design(T, g, dtype)
+            for wname, w in weights.items():
+                want = ref.stencil_sum_ref(halo, w)
+                what = f"blocks {design} T={T} g={g} {dtype} {wname} weights"
+                got = blocks_on(design, lambda: K.stencil_sum_blocks(halo, w, g=g), what)
+                check(got.dtype == torch.float32 and torch.equal(got, want),
+                      f"{what}: max |d| {(got - want).abs().max().item()}")
+                n_cmp += 1
+                n_sm90 += design == "sm90"
+                if design == "sm90":
+                    forced = torch.full_like(want, float("nan"))
+                    blocks_on("simple", lambda: K._blocks_on_card(
+                        "simple", halo, w, forced, g=g), f"{what}, forced simple")
+                    check(torch.equal(forced, want), f"{what}, forced simple != plain")
+                    n_cmp += 1
+    check(n_sm90 == 24, f"{n_sm90} repack cases ran the Hopper design")
+    sync()
+    log(f"stencil_sum_blocks, both designs, f32/bf16/f16 at M={M}: {n_cmp} "
+        f"comparisons bit-equal ({n_sm90} of the Hopper design; "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+    # fault F2 on the card: the fused step on bf16 and f16 stores (gol and
+    # wave, periodic and neumann0, S ∈ {1, 2}) and the resident tap sum on
+    # them (random weights), bit-equal to their plain versions; fused_design
+    # sends every half-precision store to the first design
+    t0 = time.perf_counter()
+    n_cmp, T, g = 0, 8, 1
+    w_rand = torch.from_numpy(rng.normal(size=(3, 3, 3)).astype(np.float32)).to(dev)
+    for dtype in (torch.bfloat16, torch.float16):
+        for rule in ("gol", "wave"):
+            C = 2 if rule == "wave" else 1
+            cube = cube_for(rule, M, C).to(dtype)
+            store = (blockize_fields(cube, T, "hilbert") if C == 2
+                     else blockize(cube[0], T, "hilbert"))
+            for bcn in ("periodic", "neumann0"):
+                bc = bc_of(bcn)
+                nbr = neighbor_table_device("hilbert", M // T,
+                                            periodic=axes_periodic(bc), device=dev)
+                bnd = boundary_face_table_device("hilbert", M // T, dev)
+                w = uniform_weights(g, dev)
+                for S in (1, 2):
+                    what = f"fused {dtype} {rule} {bcn} S={S}"
+                    check(K.fused_design(T, g, S, C, dtype) == "simple", what)
+                    got = stencil_on("simple", lambda: K.stencil_step_fused(
+                        store, w, nbr, bnd, g=g, S=S, rule=rule, bc=bc), what)
+                    want = ref.stencil_fused_ref(store, w, nbr, S=S, rule=rule,
+                                                 bc=bc, bnd=bnd)
+                    check(got.dtype == dtype and torch.equal(got, want),
+                          f"{what}: max |d| {(got.float() - want.float()).abs().max().item()}")
+                    n_cmp += 1
+        store = blockize(cube_for("jacobi", M)[0].to(dtype), T, "hilbert")
+        nbr = neighbor_table_device("hilbert", M // T, device=dev)
+        got = stencil_on("simple", lambda: K.stencil_sum_resident(store, w_rand, nbr, g=g),
+                         f"resident {dtype}")
+        check(got.dtype == torch.float32
+              and torch.equal(got, ref.stencil_sum_resident_ref(store, w_rand, nbr)),
+              f"resident {dtype} != plain")
+        n_cmp += 1
+    sync()
+    log(f"F2, bf16 and f16 stores at M={M}: {n_cmp} fused and resident "
+        f"comparisons bit-equal, every one of the first design "
         f"({time.perf_counter() - t0:.1f} s)")
 
     # every instance of the Hopper stencil design, under each rule it is
@@ -618,6 +734,14 @@ def main() -> int:
           and {c[2] for c in f1_cases} == {12, 24, 100},
           "the F1 cases take the simple design at blocks 12, 24 and 100")
     cases += f1_cases
+    # F1's head dims above 128 (gemma3-1b's 256; 160 padded to the same
+    # DP=256 build): two threads a q row, keys staged 64 at a time
+    wide_cases = [((2, 256, 256, D), causal, b, b, "morton", dt)
+                  for D in (160, 256) for dt in (torch.float32, torch.bfloat16)
+                  for causal in (True, False) for b in (64, 128)]
+    check({flash_design(c[5], c[0][3], c[2], c[3]) for c in wide_cases} == {"simple"},
+          "head dims above 128 take the simple design")
+    cases += wide_cases
     # the Hopper design: every (D, block_q, block_k) instance, causal; rows
     # with no key in an unvisited q block (384 x 256, 128-blocks) and in a
     # visited one (384 x 320, 128 x 64: rows 0..63 of q block 0); Sq < Sk;
@@ -661,7 +785,7 @@ def main() -> int:
 
     def counted(fn):
         """fn() with the launch counts set to 0 just before and read just
-        after; every fused and resident launch must be of the Hopper
+        after; every fused, resident and repack launch must be of a Hopper
         design."""
         K.reset_launches()
         out = fn()
@@ -672,6 +796,10 @@ def main() -> int:
         check(by_design == {"sm90": stencil, "simple": 0},
               f"fused and resident launches by design {by_design}, want all "
               f"{stencil} sm90")
+        by_blocks = dict(_build.BLOCKS_DESIGN_LAUNCHES)
+        check(by_blocks == {"sm90": counts["stencil_sum_blocks"], "simple": 0},
+              f"repack launches by design {by_blocks}, want all "
+              f"{counts['stencil_sum_blocks']} sm90")
         for name, n in counts.items():
             main_launches[name] += n
         return out, counts
@@ -715,10 +843,12 @@ def main() -> int:
     _, counts = counted(lambda: rep_app.run(CHIP_REPACK_STEPS))
     check(counts["stencil_sum_blocks"] == CHIP_REPACK_STEPS,
           f"repack launches {counts}")
+    check(_build.BLOCKS_DESIGN_LAUNCHES["sm90"] == CHIP_REPACK_STEPS,
+          f"repack launches by design {_build.BLOCKS_DESIGN_LAUNCHES}")
     check(torch.equal(rep_app.cube, want), "repack run != reference_run")
     log(f"main repack: M={CHIP_REPACK.M} {rep_app.block_kind} "
-        f"K={CHIP_REPACK_STEPS} launches {counts['stencil_sum_blocks']}, "
-        f"equal to reference_run")
+        f"K={CHIP_REPACK_STEPS} launches {counts['stencil_sum_blocks']}, all of "
+        f"the Hopper design, equal to reference_run")
 
     cube = apps["hilbert"].cube.contiguous()
     w1 = uniform_weights(G_MAIN, dev)
@@ -964,25 +1094,73 @@ def main() -> int:
                         max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
                         library_ms=cuda_ms(lambda: F.conv3d(halo5, w5))))
 
-    # stencil_sum_blocks at the repack path's shape
+    # stencil_sum_blocks at the repack path's shape (M=128: its 16.4 MB of
+    # blocks stay in the 50 MB L2 between timed calls) and at M=256, T=8,
+    # g=1 in f32 and bf16 (131.1 and 65.5 MB of blocks): each design, as
+    # launched and the first design, in turns, beside conv3d on the same
+    # blocks and the bound (each input byte read once, each output byte
+    # written once; f32 operations at 67 TFLOP/s)
     T_R, G_R = CHIP_REPACK.block_T, CHIP_REPACK.g
-    halo_r = blockize_with_halo(rep_app.cube.contiguous(), T_R, G_R,
-                                rep_app.block_kind)
-    nb_r = halo_r.shape[0]
-    w_r = uniform_weights(G_R, dev)
-    out_r = torch.empty((nb_r, T_R, T_R, T_R), device=dev)
-    blk = lambda: K.stencil_sum_blocks(halo_r, w_r, g=G_R, out=out_r)
-    plain = lambda: ref.stencil_sum_ref(halo_r, w_r)
-    err = (blk() - plain()).abs().max().item()
     taps_r = (2 * G_R + 1) ** 3
-    b_ms, b_by = bound(4 * (nb_r * (T_R + 2 * G_R) ** 3 + nb_r * T_R ** 3 + taps_r),
-                       nb_r * T_R ** 3 * 2 * taps_r)
-    halo_r5 = halo_r[:, None]
-    kernels.append(dict(name="stencil_sum_blocks", ms=cuda_ms(blk),
-                        plain_ms=cuda_ms(plain, reps=3, inner=3),
-                        max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
-                        library_ms=cuda_ms(lambda: F.conv3d(halo_r5,
-                                                            w_r[None, None]))))
+    w_r = uniform_weights(G_R, dev)
+
+    def blocks_row(cube_, dtype):
+        halo_ = blockize_with_halo(cube_.contiguous(), T_R, G_R, "hilbert").to(dtype)
+        nb_ = halo_.shape[0]
+        out_ = torch.empty((nb_, T_R, T_R, T_R), device=dev)
+        design = K.blocks_design(T_R, G_R, dtype)
+        variants = {"Hopper design": lambda: K.stencil_sum_blocks(
+                        halo_, w_r, g=G_R, out=out_),
+                    "first design": lambda: K._blocks_on_card(
+                        "simple", halo_, w_r, out_, g=G_R)}
+        plain_ = lambda: ref.stencil_sum_ref(halo_, w_r)
+        for name, fn in variants.items():
+            fn()
+            check(torch.equal(out_, plain_()), f"blocks, {name}, {dtype} != plain")
+        ms_, reads = in_turns(variants)
+        # device time per launch (profiler): at M=128 a launch is shorter
+        # than the host's cost of calling it, which back-to-back CUDA-event
+        # timings then measure instead
+        dev_ = {n: device_ms(fn, n=100) for n, fn in variants.items()}
+        item = halo_.element_size()
+        b_ms_, b_by_ = bound(item * nb_ * (T_R + 2 * G_R) ** 3 + 4 * nb_ * T_R ** 3
+                             + 4 * taps_r, nb_ * T_R ** 3 * 2 * taps_r)
+        lib_ms = cuda_ms(lambda: F.conv3d(halo_[:, None], w_r[None, None].to(dtype)))
+        # the rate the card reaches on a plain copy of the same blocks (one
+        # read and one write of each byte), as a yardstick for the bound
+        n_in, n_out = item * nb_ * (T_R + 2 * G_R) ** 3, 4 * nb_ * T_R ** 3
+        twin = torch.empty_like(halo_)
+        copy_ms = cuda_ms(lambda: twin.copy_(halo_))
+        del twin
+        M_ = cube_.shape[0]
+        log(f"stencil_sum_blocks M={M_} T={T_R} g={G_R} {dtype} ({design} design "
+            f"as launched), in turns: "
+            + "; ".join(f"{n} {ms_[n]:.4f} ms (readings "
+                        f"{', '.join(f'{t:.4f}' for t in reads[n])}; "
+                        f"{100 * b_ms_ / ms_[n]:.1f}% of the bound, "
+                        f"{(n_in + n_out) / ms_[n] / 1e9:.2f} TB/s; {dev_[n][1]} "
+                        f"{dev_[n][0]:.4f} ms)" for n in variants)
+            + f"; conv3d {lib_ms:.4f} ms; bound {b_ms_:.4f} ms by {b_by_} "
+            f"({n_in / 1e6:.1f} MB in, {n_out / 1e6:.1f} MB out); a copy of the "
+            f"blocks {copy_ms:.4f} ms ({2 * n_in / copy_ms / 1e9:.2f} TB/s)")
+        return ms_, dev_, b_ms_, b_by_, lib_ms, plain_, out_
+
+    # the row: the repack path's shape, device time per launch (profiler),
+    # CUDA events around back-to-back calls beside it
+    r_ms, r_dev, b_ms, b_by, lib_ms, plain, out_r = blocks_row(rep_app.cube,
+                                                               torch.float32)
+    err = (out_r - plain()).abs().max().item()
+    row = dict(name="stencil_sum_blocks", ms=r_dev["Hopper design"][0],
+               plain_ms=cuda_ms(plain, reps=3, inner=3), max_abs_err=err,
+               bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+               per_call_ms=r_ms["Hopper design"],
+               first_design_ms=r_dev["first design"][0])
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        m_ms, _, m_b, _, m_lib, _, _ = blocks_row(cube, dtype)
+        row.update({f"m256_{tag}_ms": m_ms["Hopper design"],
+                    f"m256_{tag}_first_design_ms": m_ms["first design"],
+                    f"m256_{tag}_bound_ms": m_b, f"m256_{tag}_library_ms": m_lib})
+    kernels.append(row)
     # gather_rows at the distributed path's deep-face shape: the i0 face at
     # h = S·g = 4 of the M=256, T=8 Hilbert block store (8,192 rows of 64
     # f32; a k face is 4,096 rows). The function reads each row and index
@@ -1098,6 +1276,49 @@ def main() -> int:
         f"SDPA {s32_sdpa:.4f} ms; bound {s32_bound:.4f} ms by {s32_by} at "
         f"67 TFLOP/s")
     del lq, lk, lv, f32q, f32k, f32v
+    # F1's head dim of 256 at a gemma3-1b-like shape (16 heads of S=2048,
+    # bf16, causal, 128-blocks, Morton): the simple design, beside its plain
+    # version and SDPA (a yardstick the port never calls), against the
+    # bound of its operations at 989 TFLOP/s (bf16)
+    GB, GS, GD = 16, 2048, 256
+    gq, gk, gv = (randn(GB, GS, GD, dtype=torch.bfloat16) for _ in range(3))
+    check(flash_design(torch.bfloat16, GD, FLASH_BLOCK, FLASH_BLOCK) == "simple",
+          "D=256 takes the simple design")
+    g_fn = lambda: flash_attention_fwd(gq, gk, gv, causal=True, block_q=FLASH_BLOCK,
+                                       block_k=FLASH_BLOCK, schedule="morton")
+    g_plain = lambda: ref.flash_attention_ref(gq, gk, gv)
+    g_err = flash_err(g_fn(), g_plain(), f"{(GB, GS, GD)} bf16 causal")
+    g_ms = cuda_ms(g_fn, reps=3, inner=3)
+    g_plain_ms = cuda_ms(g_plain, reps=3, inner=1)
+    g_sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(
+        gq[None], gk[None], gv[None], is_causal=True), reps=3, inner=10)
+    g_ops = 4 * GD * GB * GS * (GS + 1) // 2
+    g_bound, g_by = bound(2 * 4 * GB * GS * GD, g_ops, BF16_FLOP_PER_S)
+    log(f"flash_attention_fwd {(GB, GS, GD)} bf16 causal morton, simple design "
+        f"(two threads a q row, keys staged 64 at a time): {g_ms:.4f} ms "
+        f"({g_ops / g_ms / 1e9:.1f} TFLOP/s, {100 * g_bound / g_ms:.2f}% of the "
+        f"bound), max |d| to plain {g_err:.3g}; plain {g_plain_ms:.3f} ms; SDPA "
+        f"{g_sdpa:.4f} ms; bound {g_bound:.4f} ms by {g_by} ({g_ops / 1e9:.2f} GFLOP)")
+    del gq, gk, gv
+
+    # the repack path Gol3d.run at CHIP_REPACK: ms per timestep end to end
+    # (host clock, median of 5 after a warm-up) and the repack kernel's
+    # share of it (its CUDA-event time per launch, one launch a timestep)
+    rep_walls = []
+    rep_app.run(CHIP_REPACK_STEPS)
+    sync()
+    for _ in range(5):
+        t1 = time.perf_counter()
+        rep_app.run(CHIP_REPACK_STEPS)
+        sync()
+        rep_walls.append(1e3 * (time.perf_counter() - t1) / CHIP_REPACK_STEPS)
+    rep_ms = statistics.median(rep_walls)
+    log(f"repack Gol3d.run M={CHIP_REPACK.M} K={CHIP_REPACK_STEPS}: "
+        f"{rep_ms:.4f} ms per timestep end to end (readings "
+        f"{', '.join(f'{t:.4f}' for t in rep_walls)}); the stencil_sum_blocks "
+        f"kernel {r_dev['Hopper design'][0]:.4f} ms of it on the device "
+        f"({100 * r_dev['Hopper design'][0] / rep_ms:.1f}%), "
+        f"{r_ms['Hopper design']:.4f} ms per call on the host's clock")
 
     # the main path per ordering: end to end (host clock) and kernels only
     item_bytes = 4 * fused_items_per_launch(M_MAIN, T_MAIN, G_MAIN, S_MAIN)
@@ -1308,6 +1529,8 @@ def main() -> int:
 
     app = apps["hilbert"]
     profiled(lambda: app.run_resident(K_MAIN), f"run_resident({K_MAIN}) hilbert")
+    profiled(lambda: rep_app.run(CHIP_REPACK_STEPS),
+             f"repack run({CHIP_REPACK_STEPS}) M={CHIP_REPACK.M}", top=10)
     app = Gol3d(CHIP_DISTRIBUTED)
     for shape, mesh in meshes.items():
         profiled(lambda: app.run_distributed(mesh, K_D),
@@ -1326,7 +1549,9 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
+    print(json.dumps({"kernels": [{**{k: kern[k] for k in keys},
+                                   **{k: v for k, v in kern.items() if k not in keys}}
+                                  for kern in kernels]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,7 +21,8 @@ raises on the error code it returns, and adds one to the kernel's count
 in :data:`LAUNCHES` — the port's one launch counter, shared by every
 wrapper (the flash wrapper also counts each launch under its design in
 :data:`FLASH_DESIGN_LAUNCHES`, the fused and resident stencil wrappers in
-:data:`STENCIL_DESIGN_LAUNCHES`).
+:data:`STENCIL_DESIGN_LAUNCHES`, the repack tap sum in
+:data:`BLOCKS_DESIGN_LAUNCHES`).
 """
 
 from __future__ import annotations
@@ -37,14 +38,15 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["FLASH_DESIGN_LAUNCHES", "LAUNCHES", "NVCC_FLAGS", "SOURCES",
+__all__ = ["BLOCKS_DESIGN_LAUNCHES", "FLASH_DESIGN_LAUNCHES", "LAUNCHES",
+           "NVCC_FLAGS", "SOURCES",
            "STENCIL_DESIGN_LAUNCHES", "build", "launch", "library", "nvcc_path",
            "reset_launches"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("stencil3d", "stencil3d_sm90", "sfc_gather", "flash_attn",
-           "flash_attn_sm90")
+SOURCES = ("stencil3d", "stencil3d_sm90", "stencil3d_blocks_sm90", "sfc_gather",
+           "flash_attn", "flash_attn_sm90")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-prec-div=true", "-prec-sqrt=true", "-ftz=false",
@@ -64,10 +66,14 @@ FLASH_DESIGN_LAUNCHES = {"sm90": 0, "simple": 0}
 # stencil_step_fused's and stencil_sum_resident's launches by design
 # (kernels/stencil3d.fused_design): each also counts once in LAUNCHES.
 STENCIL_DESIGN_LAUNCHES = {"sm90": 0, "simple": 0}
+# stencil_sum_blocks' launches by design (kernels/stencil3d.blocks_design):
+# each also counts once in LAUNCHES.
+BLOCKS_DESIGN_LAUNCHES = {"sm90": 0, "simple": 0}
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, FLASH_DESIGN_LAUNCHES, STENCIL_DESIGN_LAUNCHES):
+    for counts in (LAUNCHES, FLASH_DESIGN_LAUNCHES, STENCIL_DESIGN_LAUNCHES,
+                   BLOCKS_DESIGN_LAUNCHES):
         for name in counts:
             counts[name] = 0
 

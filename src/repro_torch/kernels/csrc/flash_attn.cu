@@ -27,10 +27,18 @@
 // kv tile of K and V is staged in shared memory as f32 (2 * bk * DP * 4
 // bytes, 64 KiB at bk = 128, D = 64), and every thread reads it by
 // broadcast, 16 bytes at a time. Keys are scored 16 at a time before one
-// online-softmax update. D is padded to DP (16, 32, 64 or 128) with zeros.
-// Any bk in [1, 128] runs (the reference runs every block that divides
-// the sequence): where bk is not a multiple of 16, the last chunk's keys
-// past the tile read its last row, with their scores masked to -inf.
+// online-softmax update. D is padded to DP (16, 32, 64, 128 or 256) with
+// zeros. Any bk in [1, 128] runs (the reference runs every block that
+// divides the sequence): where bk is not a multiple of 16, the last
+// chunk's keys past the tile read its last row, with their scores masked
+// to -inf.
+// Head dims above 128 (DP = 256, gemma3-1b's D): two threads per q row,
+// each owning half the head dim, so each keeps 128 + 128 floats as the
+// DP = 128 instance does; their partial dot products meet in one
+// __shfl_xor_sync (both threads then hold the same score, as a + b == b + a
+// in IEEE arithmetic). f32 K and V tiles of 128 keys at DP = 256 would take
+// 256 KiB, over the 227 KiB a thread block may use: the tile is staged 64
+// keys at a time, whatever bk is.
 //
 // What bounds it on an H100: at the prefill's shape (BH = 60, S = 2048,
 // D = 64, causal, bf16) the function needs 4 * D * BH * S(S+1)/2 = 3.2e10
@@ -48,7 +56,16 @@
 namespace {
 
 constexpr int KC = 16;           // keys scored per online-softmax update
-constexpr int MAX_ROWS = 128;    // largest q block (threads per block)
+constexpr int MAX_ROWS = 128;    // largest q block
+constexpr int MAX_DP = 256;      // widest padded head dim
+
+// Threads per q row, and keys staged in shared memory at a time, at DP.
+__host__ __device__ constexpr int threads_per_row(int dp) { return dp > 128 ? 2 : 1; }
+__host__ __device__ constexpr int staged_keys(int dp) { return dp > 128 ? 64 : 128; }
+// Floats a tile row takes in shared memory: with two threads a row, the
+// second half of each row starts 16 bytes late, so that the two halves'
+// 16-byte reads of a warp fall on different banks.
+__host__ __device__ constexpr int row_pitch(int dp) { return dp > 128 ? dp + 4 : dp; }
 
 __device__ __forceinline__ void load8(const float* p, float* dst) {
   const float4 a = *reinterpret_cast<const float4*>(p);
@@ -74,31 +91,39 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 }
 
 template <typename T, int DP>
-__global__ void __launch_bounds__(MAX_ROWS)
+__global__ void __launch_bounds__(MAX_ROWS * threads_per_row(DP))
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  const int* __restrict__ plan, int sq, int sk, int d, int bq,
                  int bk, int causal, float scale) {
+  constexpr int NS = threads_per_row(DP);  // threads per q row
+  constexpr int DH = DP / NS;              // head-dim columns per thread
+  constexpr int RP = row_pitch(DP);        // a tile row in shared memory
+  const int kt = min(bk, staged_keys(DP)); // keys in shared memory at a time
   extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);  // (bk, DP)
-  float* vs = ks + bk * DP;                     // (bk, DP)
+  float* ks = reinterpret_cast<float*>(smem4);  // (kt, RP)
+  float* vs = ks + kt * RP;                     // (kt, RP)
   const int nq = sq / bq;
   const int* q_order = plan;
   const int* row_ptr = plan + nq;
   const int* cols = plan + 2 * nq + 1;
 
   const int iq = q_order[blockIdx.x];
-  const int r = threadIdx.x;
+  const int r = threadIdx.x / NS;
+  const int c0 = (threadIdx.x % NS) * DH;  // this thread's first column
+  const int t0 = (threadIdx.x % NS) * (DH + RP - DP);  // and where it lies in a row
+  // the two lanes of a q row (NS = 2), for the dot products' exchange
+  const unsigned pair = 3u << ((threadIdx.x & 31) & ~1);
   const int row = iq * bq + r;
   const int offs = sk - sq;
   const int64_t qbase = (static_cast<int64_t>(blockIdx.y) * sq + row) * d;
   const int64_t kvbase = static_cast<int64_t>(blockIdx.y) * sk * d;
 
-  float qr[DP], acc[DP];
+  float qr[DH], acc[DH];
 #pragma unroll
-  for (int c = 0; c < DP; c += 8) {
-    if (c < d) {
-      load8(q + qbase + c, qr + c);
+  for (int c = 0; c < DH; c += 8) {
+    if (c0 + c < d) {
+      load8(q + qbase + c0 + c, qr + c);
     } else {
 #pragma unroll
       for (int i = 0; i < 8; ++i) qr[c + i] = 0.f;
@@ -107,10 +132,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < 8; ++i) acc[c + i] = 0.f;
   }
   // the padded columns [d, DP) of the tiles stay zero
-  for (int e = r; e < bk * (DP - d); e += blockDim.x) {
+  for (int e = threadIdx.x; e < kt * (DP - d); e += blockDim.x) {
     const int j = e / (DP - d), c = d + e % (DP - d);
-    ks[j * DP + c] = 0.f;
-    vs[j * DP + c] = 0.f;
+    const int at = j * RP + c + (c >= DH ? RP - DP : 0);
+    ks[at] = 0.f;
+    vs[at] = 0.f;
   }
 
   float m = -INFINITY, l = 0.f;
@@ -118,66 +144,72 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int stop = row_ptr[iq + 1];
   for (int t = row_ptr[iq]; t < stop; ++t) {
     const int ik = cols[t];
-    __syncthreads();  // every row is done with the previous tile
-    for (int e = r; e < bk * vec_per_row; e += blockDim.x) {
-      const int j = e / vec_per_row, c = (e - j * vec_per_row) * 8;
-      const int64_t g = kvbase + static_cast<int64_t>(ik * bk + j) * d + c;
-      float tmp[8];
-      load8(k + g, tmp);
-      reinterpret_cast<float4*>(ks + j * DP + c)[0] = make_float4(tmp[0], tmp[1], tmp[2], tmp[3]);
-      reinterpret_cast<float4*>(ks + j * DP + c)[1] = make_float4(tmp[4], tmp[5], tmp[6], tmp[7]);
-      load8(v + g, tmp);
-      reinterpret_cast<float4*>(vs + j * DP + c)[0] = make_float4(tmp[0], tmp[1], tmp[2], tmp[3]);
-      reinterpret_cast<float4*>(vs + j * DP + c)[1] = make_float4(tmp[4], tmp[5], tmp[6], tmp[7]);
-    }
-    __syncthreads();
-    // keys j <= lim of this tile are visible to this row
-    const int lim = causal ? min(bk - 1, row + offs - ik * bk) : bk - 1;
-    for (int j0 = 0; j0 <= lim; j0 += KC) {
-      float s[KC];
-      float mc = -INFINITY;
-#pragma unroll
-      for (int jj = 0; jj < KC; ++jj) {
-        const float* kr = ks + min(j0 + jj, bk - 1) * DP;
-        float dot = 0.f;
-#pragma unroll
-        for (int c = 0; c < DP; c += 4) {
-          const float4 kk = *reinterpret_cast<const float4*>(kr + c);
-          dot = fmaf(qr[c], kk.x, dot);
-          dot = fmaf(qr[c + 1], kk.y, dot);
-          dot = fmaf(qr[c + 2], kk.z, dot);
-          dot = fmaf(qr[c + 3], kk.w, dot);
-        }
-        s[jj] = (j0 + jj <= lim) ? dot * scale : -INFINITY;
-        mc = fmaxf(mc, s[jj]);
+    // the tile's keys jb .. jb+n-1, kt at a time (one pass where kt = bk)
+    for (int jb = 0; jb < bk; jb += kt) {
+      const int n = min(kt, bk - jb);
+      __syncthreads();  // every row is done with the previous keys
+      for (int e = threadIdx.x; e < n * vec_per_row; e += blockDim.x) {
+        const int j = e / vec_per_row, c = (e - j * vec_per_row) * 8;
+        const int64_t g = kvbase + static_cast<int64_t>(ik * bk + jb + j) * d + c;
+        const int at = j * RP + c + (c >= DH ? RP - DP : 0);
+        float tmp[8];
+        load8(k + g, tmp);
+        reinterpret_cast<float4*>(ks + at)[0] = make_float4(tmp[0], tmp[1], tmp[2], tmp[3]);
+        reinterpret_cast<float4*>(ks + at)[1] = make_float4(tmp[4], tmp[5], tmp[6], tmp[7]);
+        load8(v + g, tmp);
+        reinterpret_cast<float4*>(vs + at)[0] = make_float4(tmp[0], tmp[1], tmp[2], tmp[3]);
+        reinterpret_cast<float4*>(vs + at)[1] = make_float4(tmp[4], tmp[5], tmp[6], tmp[7]);
       }
-      // s[0] is visible, so m_new is finite; alpha = 0 on the first update
-      const float m_new = fmaxf(m, mc);
-      const float alpha = expf(m - m_new);
-      l *= alpha;
+      __syncthreads();
+      // keys j <= lim of these n are visible to this row
+      const int lim = causal ? min(n - 1, row + offs - ik * bk - jb) : n - 1;
+      for (int j0 = 0; j0 <= lim; j0 += KC) {
+        float s[KC];
+        float mc = -INFINITY;
 #pragma unroll
-      for (int c = 0; c < DP; ++c) acc[c] *= alpha;
+        for (int jj = 0; jj < KC; ++jj) {
+          const float* kr = ks + min(j0 + jj, n - 1) * RP + t0;
+          float dot = 0.f;
 #pragma unroll
-      for (int jj = 0; jj < KC; ++jj) {
-        const float p = expf(s[jj] - m_new);
-        l += p;
-        const float* vr = vs + min(j0 + jj, bk - 1) * DP;
-#pragma unroll
-        for (int c = 0; c < DP; c += 4) {
-          const float4 vv = *reinterpret_cast<const float4*>(vr + c);
-          acc[c] = fmaf(p, vv.x, acc[c]);
-          acc[c + 1] = fmaf(p, vv.y, acc[c + 1]);
-          acc[c + 2] = fmaf(p, vv.z, acc[c + 2]);
-          acc[c + 3] = fmaf(p, vv.w, acc[c + 3]);
+          for (int c = 0; c < DH; c += 4) {
+            const float4 kk = *reinterpret_cast<const float4*>(kr + c);
+            dot = fmaf(qr[c], kk.x, dot);
+            dot = fmaf(qr[c + 1], kk.y, dot);
+            dot = fmaf(qr[c + 2], kk.z, dot);
+            dot = fmaf(qr[c + 3], kk.w, dot);
+          }
+          if constexpr (NS == 2) dot += __shfl_xor_sync(pair, dot, 1);
+          s[jj] = (j0 + jj <= lim) ? dot * scale : -INFINITY;
+          mc = fmaxf(mc, s[jj]);
         }
+        // s[0] is visible, so m_new is finite; alpha = 0 on the first update
+        const float m_new = fmaxf(m, mc);
+        const float alpha = expf(m - m_new);
+        l *= alpha;
+#pragma unroll
+        for (int c = 0; c < DH; ++c) acc[c] *= alpha;
+#pragma unroll
+        for (int jj = 0; jj < KC; ++jj) {
+          const float p = expf(s[jj] - m_new);
+          l += p;
+          const float* vr = vs + min(j0 + jj, n - 1) * RP + t0;
+#pragma unroll
+          for (int c = 0; c < DH; c += 4) {
+            const float4 vv = *reinterpret_cast<const float4*>(vr + c);
+            acc[c] = fmaf(p, vv.x, acc[c]);
+            acc[c + 1] = fmaf(p, vv.y, acc[c + 1]);
+            acc[c + 2] = fmaf(p, vv.z, acc[c + 2]);
+            acc[c + 3] = fmaf(p, vv.w, acc[c + 3]);
+          }
+        }
+        m = m_new;
       }
-      m = m_new;
     }
   }
   const float inv = l > 0.f ? 1.f / l : 0.f;
 #pragma unroll
-  for (int c = 0; c < DP; ++c) {
-    if (c < d) store(o + qbase + c, acc[c] * inv);
+  for (int c = 0; c < DH; ++c) {
+    if (c0 + c < d) store(o + qbase + c0 + c, acc[c] * inv);
   }
 }
 
@@ -185,12 +217,13 @@ template <typename T, int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    const int* plan, int bh, int sq, int sk, int d, int bq,
                    int bk, int causal, float scale, cudaStream_t stream) {
-  const size_t smem = 2 * static_cast<size_t>(bk) * DP * sizeof(float);
+  const int kt = bk < staged_keys(DP) ? bk : staged_keys(DP);
+  const size_t smem = 2 * static_cast<size_t>(kt) * row_pitch(DP) * sizeof(float);
   auto kern = flash_fwd_kernel<T, DP>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kern<<<dim3(sq / bq, bh), bq, smem, stream>>>(
+  kern<<<dim3(sq / bq, bh), bq * threads_per_row(DP), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), plan, sq, sk, d, bq, bk,
       causal, scale);
@@ -204,7 +237,8 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
   if (d <= 16) return launch<T, 16>(q, k, v, o, plan, bh, sq, sk, d, bq, bk, causal, scale, st);
   if (d <= 32) return launch<T, 32>(q, k, v, o, plan, bh, sq, sk, d, bq, bk, causal, scale, st);
   if (d <= 64) return launch<T, 64>(q, k, v, o, plan, bh, sq, sk, d, bq, bk, causal, scale, st);
-  return launch<T, 128>(q, k, v, o, plan, bh, sq, sk, d, bq, bk, causal, scale, st);
+  if (d <= 128) return launch<T, 128>(q, k, v, o, plan, bh, sq, sk, d, bq, bk, causal, scale, st);
+  return launch<T, 256>(q, k, v, o, plan, bh, sq, sk, d, bq, bk, causal, scale, st);
 }
 
 }  // namespace
@@ -213,7 +247,7 @@ extern "C" {
 
 // q (bh, sq, d), k and v (bh, sk, d), o (bh, sq, d), contiguous, all of
 // one dtype (0: f32, 1: bf16), 16-byte aligned. d a multiple of 8 up to
-// 128; bq and bk in [1, 128] dividing sq and sk. plan int32
+// 256; bq and bk in [1, 128] dividing sq and sk. plan int32
 // [q_order (sq/bq) | row_ptr (sq/bq + 1) | cols]. The wrapper checks all
 // of this; the kernel trusts it.
 int repro_flash_attention_fwd(const void* q, const void* k, const void* v,
@@ -222,7 +256,7 @@ int repro_flash_attention_fwd(const void* q, const void* k, const void* v,
                               float scale, int dtype, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   auto pl = static_cast<const int*>(plan);
-  if (d < 8 || d > 128 || d % 8 || bq < 1 || bq > MAX_ROWS || bk < 1 ||
+  if (d < 8 || d > MAX_DP || d % 8 || bq < 1 || bq > MAX_ROWS || bk < 1 ||
       bk > 128 || sq % bq || sk % bk)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (dtype) {

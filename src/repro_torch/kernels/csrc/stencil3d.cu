@@ -1,6 +1,8 @@
 // SFC-blocked 3-D weighted stencil kernels for Hopper (sm_90a).
-// (fused_kernel now serves the shapes csrc/stencil3d_sm90.cu does not take:
-// T outside {8, 16}, g outside {1, 2}, or three windows too large.)
+// (fused_kernel now serves the shapes and dtypes csrc/stencil3d_sm90.cu does
+// not take: T outside {8, 16}, g outside {1, 2}, three windows too large, or
+// a bf16 or f16 store; halo_sum_kernel the shapes and dtypes
+// csrc/stencil3d_blocks_sm90.cu does not take.)
 //
 // Three kernels, behind a plain C interface loaded with ctypes
 // (kernels/_build.py, kernels/stencil3d.py):
@@ -16,6 +18,13 @@
 //   halo_sum_kernel<G>      replaces stencil_sum_blocks (_halo_kernel): the
 //                           tap sum of one halo-extended block per thread
 //                           block (the repack baseline).
+//
+// Element types. Every kernel is templated on the store's element type
+// (float, __nv_bfloat16 or __half). Loads widen to f32 exactly, the window
+// in shared memory is f32, and every substep runs in f32; the one write
+// rounds to the store's type (the fused step) or is f32 (the two tap sums),
+// as the reference does (src/repro/kernels/stencil3d.py: _assemble_window
+// casts to f32, _fused_kernel writes in o_ref's dtype).
 //
 // Numerics. Every product and sum uses the round-to-nearest intrinsics
 // (__fmul_rn, __fadd_rn, __fdiv_rn), which the compiler never contracts
@@ -49,7 +58,12 @@
 //     per block; 27 shared loads per site.
 //   halo_sum: bound by its input, the halo-duplicated (T+2g)^3 block read
 //     once ((10/8)^3 = 1.95x the store for T=8, g=1), plus the T^3 write.
+//     Nothing here overlaps a block's load with its compute but the
+//     co-resident thread blocks; csrc/stencil3d_blocks_sm90.cu, the Hopper
+//     design, does (bulk copies into a ring) for T in {8, 16}, g in {1, 2}.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -63,6 +77,11 @@ constexpr int RULE_WAVE = 3;
 constexpr int BC_PERIODIC = 0;
 constexpr int BC_DIRICHLET = 1;
 constexpr int BC_NEUMANN0 = 2;
+
+// The store's element type, as the wrapper passes it.
+constexpr int DTYPE_F32 = 0;
+constexpr int DTYPE_BF16 = 1;
+constexpr int DTYPE_F16 = 2;
 
 constexpr int THREADS = 256;
 // Taps are unrolled with the weights in registers for g = 1 and g = 2
@@ -78,6 +97,17 @@ struct Bc {
 __host__ __device__ constexpr int channels_of(int rule) {
   return rule == RULE_WAVE ? 2 : 1;
 }
+
+// Exact widening of a stored element, and the one rounding of a result.
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float widen(__half x) { return __half2float(x); }
+
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ void put(__half* p, float x) { *p = __float2half_rn(x); }
 
 // Weights of a compile-time radius held in registers; a runtime radius
 // reads them through the read-only cache.
@@ -193,9 +223,11 @@ __device__ void refresh_ghosts(float* buf, int C, int E, int depth,
 
 // One thread block per output block b (grid = nb). Dynamic shared memory
 // holds two C*(T+2Sg)^3 f32 windows that the substeps ping-pong between.
-template <int RULE, int G>
+// In is the store's element type, Out the output's (In for the fused step,
+// float for the resident sum).
+template <typename In, typename Out, int RULE, int G>
 __global__ void __launch_bounds__(THREADS)
-fused_kernel(const float* __restrict__ store, float* __restrict__ out,
+fused_kernel(const In* __restrict__ store, Out* __restrict__ out,
              const float* __restrict__ weights, const int* __restrict__ nbr,
              const int* __restrict__ bnd, int nb, int nb_src, int out_nb,
              int T, int g_rt, int S, Bc bc) {
@@ -240,8 +272,8 @@ fused_kernel(const float* __restrict__ store, float* __restrict__ out,
       const int sy = y - h + (pb == 0 ? T : (pb == 2 ? -T : 0));
       const int sx = x - h + (pc == 0 ? T : (pc == 2 ? -T : 0));
       const int blk = s_nbr[pa * 9 + pb * 3 + pc];
-      cur[idx] = store[(static_cast<int64_t>(c) * nb_src + blk) * T3 +
-                       (sz * T + sy) * T + sx];
+      cur[idx] = widen(store[(static_cast<int64_t>(c) * nb_src + blk) * T3 +
+                             (sz * T + sy) * T + sx]);
     }
   }
   __syncthreads();
@@ -282,15 +314,15 @@ fused_kernel(const float* __restrict__ store, float* __restrict__ out,
 
   for (int idx = threadIdx.x; idx < C * T3; idx += blockDim.x) {
     const int c = idx / T3;
-    out[(static_cast<int64_t>(c) * out_nb + b) * T3 + (idx - c * T3)] = cur[idx];
+    put(out + (static_cast<int64_t>(c) * out_nb + b) * T3 + (idx - c * T3), cur[idx]);
   }
 }
 
 // One thread block per halo-extended block: stage its (T+2g)^3 window in
 // shared memory, then tap-sum the T^3 interior.
-template <int G>
+template <typename In, int G>
 __global__ void __launch_bounds__(THREADS)
-halo_sum_kernel(const float* __restrict__ blocks, float* __restrict__ out,
+halo_sum_kernel(const In* __restrict__ blocks, float* __restrict__ out,
                 const float* __restrict__ weights, int T, int g_rt) {
   extern __shared__ float win[];
   Weights<G> wt;
@@ -299,7 +331,7 @@ halo_sum_kernel(const float* __restrict__ blocks, float* __restrict__ out,
   const int W3 = W * W * W, T3 = T * T * T;
   const int64_t b = blockIdx.x;
   for (int idx = threadIdx.x; idx < W3; idx += blockDim.x)
-    win[idx] = blocks[b * W3 + idx];
+    win[idx] = widen(blocks[b * W3 + idx]);
   __syncthreads();
   for (int idx = threadIdx.x; idx < T3; idx += blockDim.x) {
     const int z = idx / (T * T), y = (idx / T) % T, x = idx % T;
@@ -307,117 +339,160 @@ halo_sum_kernel(const float* __restrict__ blocks, float* __restrict__ out,
   }
 }
 
-template <int RULE, int G>
-cudaError_t launch_fused(const float* store, float* out, const float* w,
+template <typename In, typename Out, int RULE, int G>
+cudaError_t launch_fused(const void* store, void* out, const float* w,
                          const int* nbr, const int* bnd, int nb, int nb_src,
                          int out_nb, int T, int g, int S, Bc bc,
                          cudaStream_t stream) {
   const int E0 = T + 2 * S * g;
   const size_t smem = sizeof(float) * 2 * channels_of(RULE) *
                       static_cast<size_t>(E0) * E0 * E0;
+  auto kern = fused_kernel<In, Out, RULE, G>;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_kernel<RULE, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  fused_kernel<RULE, G><<<nb, THREADS, smem, stream>>>(
-      store, out, w, nbr, bnd, nb, nb_src, out_nb, T, g, S, bc);
+  kern<<<nb, THREADS, smem, stream>>>(static_cast<const In*>(store),
+                                      static_cast<Out*>(out), w, nbr, bnd, nb,
+                                      nb_src, out_nb, T, g, S, bc);
   return cudaGetLastError();
 }
 
-template <int RULE>
-cudaError_t dispatch_g(const float* store, float* out, const float* w,
+template <typename In, typename Out, int RULE>
+cudaError_t dispatch_g(const void* store, void* out, const float* w,
                        const int* nbr, const int* bnd, int nb, int nb_src,
                        int out_nb, int T, int g, int S, Bc bc,
                        cudaStream_t stream) {
   switch (g) {
     case 1:
-      return launch_fused<RULE, 1>(store, out, w, nbr, bnd, nb, nb_src, out_nb,
-                                   T, g, S, bc, stream);
+      return launch_fused<In, Out, RULE, 1>(store, out, w, nbr, bnd, nb, nb_src,
+                                            out_nb, T, g, S, bc, stream);
     case 2:
-      return launch_fused<RULE, 2>(store, out, w, nbr, bnd, nb, nb_src, out_nb,
-                                   T, g, S, bc, stream);
+      return launch_fused<In, Out, RULE, 2>(store, out, w, nbr, bnd, nb, nb_src,
+                                            out_nb, T, g, S, bc, stream);
     default:
-      return launch_fused<RULE, 0>(store, out, w, nbr, bnd, nb, nb_src, out_nb,
-                                   T, g, S, bc, stream);
+      return launch_fused<In, Out, RULE, 0>(store, out, w, nbr, bnd, nb, nb_src,
+                                            out_nb, T, g, S, bc, stream);
   }
 }
 
-template <int G>
-cudaError_t launch_halo_sum(const float* blocks, float* out, const float* w,
+template <typename E>
+cudaError_t dispatch_rule(int rule, const void* store, void* out,
+                          const float* w, const int* nbr, const int* bnd,
+                          int nb, int nb_src, int out_nb, int T, int g, int S,
+                          Bc bc, cudaStream_t st) {
+  switch (rule) {
+    case RULE_GOL:
+      return dispatch_g<E, E, RULE_GOL>(store, out, w, nbr, bnd, nb, nb_src,
+                                        out_nb, T, g, S, bc, st);
+    case RULE_JACOBI:
+      return dispatch_g<E, E, RULE_JACOBI>(store, out, w, nbr, bnd, nb, nb_src,
+                                           out_nb, T, g, S, bc, st);
+    case RULE_IDENTITY:
+      return dispatch_g<E, E, RULE_IDENTITY>(store, out, w, nbr, bnd, nb,
+                                             nb_src, out_nb, T, g, S, bc, st);
+    case RULE_WAVE:
+      return dispatch_g<E, E, RULE_WAVE>(store, out, w, nbr, bnd, nb, nb_src,
+                                         out_nb, T, g, S, bc, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename In, int G>
+cudaError_t launch_halo_sum(const void* blocks, float* out, const float* w,
                             int nb, int T, int g, cudaStream_t stream) {
   const int W = T + 2 * g;
   const size_t smem = sizeof(float) * static_cast<size_t>(W) * W * W;
+  auto kern = halo_sum_kernel<In, G>;
   cudaError_t err = cudaFuncSetAttribute(
-      halo_sum_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  halo_sum_kernel<G><<<nb, THREADS, smem, stream>>>(blocks, out, w, T, g);
+  kern<<<nb, THREADS, smem, stream>>>(static_cast<const In*>(blocks), out, w, T, g);
   return cudaGetLastError();
+}
+
+template <typename In>
+cudaError_t dispatch_halo_sum(const void* blocks, float* out, const float* w,
+                              int nb, int T, int g, cudaStream_t st) {
+  switch (g) {
+    case 1: return launch_halo_sum<In, 1>(blocks, out, w, nb, T, g, st);
+    case 2: return launch_halo_sum<In, 2>(blocks, out, w, nb, T, g, st);
+    default: return launch_halo_sum<In, 0>(blocks, out, w, nb, T, g, st);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// S fused timesteps: store f32 (C, nb_src, T,T,T) -> out f32 (C, nb, T,T,T)
-// (C = 2 for wave, else 1), whose channels lie out_nb >= nb blocks apart
-// (out_nb > nb: the core of a larger, extended store); nbr int32 (nb, 27);
-// bnd int32 (nb, 6) or null when every axis is periodic; bc_* per axis
-// k, i, j.
-int repro_stencil_step_fused_f32(const void* store, void* out, const void* w,
-                                 const void* nbr, const void* bnd, int nb,
-                                 int nb_src, int out_nb, int T, int g, int S,
-                                 int rule,
-                                 int bc_k, int bc_i, int bc_j, float val_k,
-                                 float val_i, float val_j, void* stream) {
+// S fused timesteps: store (C, nb_src, T,T,T) -> out (C, nb, T,T,T) in the
+// store's dtype (0: f32, 1: bf16, 2: f16; C = 2 for wave, else 1), whose
+// channels lie out_nb >= nb blocks apart (out_nb > nb: the core of a
+// larger, extended store); nbr int32 (nb, 27); bnd int32 (nb, 6) or null
+// when every axis is periodic; bc_* per axis k, i, j.
+int repro_stencil_step_fused(const void* store, void* out, const void* w,
+                             const void* nbr, const void* bnd, int nb,
+                             int nb_src, int out_nb, int T, int g, int S,
+                             int rule, int bc_k, int bc_i, int bc_j,
+                             float val_k, float val_i, float val_j, int dtype,
+                             void* stream) {
   const Bc bc = {{bc_k, bc_i, bc_j}, {val_k, val_i, val_j}};
   auto st = static_cast<cudaStream_t>(stream);
-  auto s = static_cast<const float*>(store);
-  auto o = static_cast<float*>(out);
   auto wp = static_cast<const float*>(w);
   auto nt = static_cast<const int*>(nbr);
   auto bt = static_cast<const int*>(bnd);
-  switch (rule) {
-    case RULE_GOL:
-      return dispatch_g<RULE_GOL>(s, o, wp, nt, bt, nb, nb_src, out_nb, T, g,
-                                  S, bc, st);
-    case RULE_JACOBI:
-      return dispatch_g<RULE_JACOBI>(s, o, wp, nt, bt, nb, nb_src, out_nb, T,
-                                     g, S, bc, st);
-    case RULE_IDENTITY:
-      return dispatch_g<RULE_IDENTITY>(s, o, wp, nt, bt, nb, nb_src, out_nb, T,
-                                       g, S, bc, st);
-    case RULE_WAVE:
-      return dispatch_g<RULE_WAVE>(s, o, wp, nt, bt, nb, nb_src, out_nb, T, g,
-                                   S, bc, st);
+  switch (dtype) {
+    case DTYPE_F32:
+      return dispatch_rule<float>(rule, store, out, wp, nt, bt, nb, nb_src,
+                                  out_nb, T, g, S, bc, st);
+    case DTYPE_BF16:
+      return dispatch_rule<__nv_bfloat16>(rule, store, out, wp, nt, bt, nb,
+                                          nb_src, out_nb, T, g, S, bc, st);
+    case DTYPE_F16:
+      return dispatch_rule<__half>(rule, store, out, wp, nt, bt, nb, nb_src,
+                                   out_nb, T, g, S, bc, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // The f32 tap sum over the periodic store: the S = 1 identity case of the
-// fused kernel. store (nb, T,T,T), nbr (nb, 27) -> out (nb, T,T,T).
-int repro_stencil_sum_resident_f32(const void* store, void* out, const void* w,
-                                   const void* nbr, int nb, int T, int g,
-                                   void* stream) {
+// fused kernel. store (nb, T,T,T) of dtype (as above), nbr (nb, 27) ->
+// out f32 (nb, T,T,T).
+int repro_stencil_sum_resident(const void* store, void* out, const void* w,
+                               const void* nbr, int nb, int T, int g,
+                               int dtype, void* stream) {
   const Bc bc = {{BC_PERIODIC, BC_PERIODIC, BC_PERIODIC}, {0.f, 0.f, 0.f}};
-  return dispatch_g<RULE_IDENTITY>(
-      static_cast<const float*>(store), static_cast<float*>(out),
-      static_cast<const float*>(w), static_cast<const int*>(nbr), nullptr, nb,
-      nb, nb, T, g, 1, bc, static_cast<cudaStream_t>(stream));
+  auto st = static_cast<cudaStream_t>(stream);
+  auto wp = static_cast<const float*>(w);
+  auto nt = static_cast<const int*>(nbr);
+  switch (dtype) {
+    case DTYPE_F32:
+      return dispatch_g<float, float, RULE_IDENTITY>(store, out, wp, nt, nullptr,
+                                                     nb, nb, nb, T, g, 1, bc, st);
+    case DTYPE_BF16:
+      return dispatch_g<__nv_bfloat16, float, RULE_IDENTITY>(
+          store, out, wp, nt, nullptr, nb, nb, nb, T, g, 1, bc, st);
+    case DTYPE_F16:
+      return dispatch_g<__half, float, RULE_IDENTITY>(store, out, wp, nt, nullptr,
+                                                      nb, nb, nb, T, g, 1, bc, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
-// Repack form: blocks (nb, T+2g, T+2g, T+2g) -> out (nb, T,T,T).
-int repro_stencil_sum_blocks_f32(const void* blocks, void* out, const void* w,
-                                 int nb, int T, int g, void* stream) {
-  auto b = static_cast<const float*>(blocks);
+// Repack form: blocks (nb, T+2g, T+2g, T+2g) of dtype (as above) -> out
+// f32 (nb, T,T,T).
+int repro_stencil_sum_blocks(const void* blocks, void* out, const void* w,
+                             int nb, int T, int g, int dtype, void* stream) {
   auto o = static_cast<float*>(out);
   auto wp = static_cast<const float*>(w);
   auto st = static_cast<cudaStream_t>(stream);
-  switch (g) {
-    case 1: return launch_halo_sum<1>(b, o, wp, nb, T, g, st);
-    case 2: return launch_halo_sum<2>(b, o, wp, nb, T, g, st);
-    default: return launch_halo_sum<0>(b, o, wp, nb, T, g, st);
+  switch (dtype) {
+    case DTYPE_F32: return dispatch_halo_sum<float>(blocks, o, wp, nb, T, g, st);
+    case DTYPE_BF16: return dispatch_halo_sum<__nv_bfloat16>(blocks, o, wp, nb, T, g, st);
+    case DTYPE_F16: return dispatch_halo_sum<__half>(blocks, o, wp, nb, T, g, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 

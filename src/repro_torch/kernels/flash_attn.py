@@ -8,7 +8,8 @@ designs compute it, and :func:`flash_design` (a pure function of dtype, D
 and the block sizes) picks one: ``csrc/flash_attn_sm90.cu`` (wgmma on the
 tensor cores, TMA-fed K/V ring, warp specialisation) for bf16 with D and
 both blocks in {64, 128}, ``csrc/flash_attn.cu`` (one thread per q row,
-f32 on the CUDA cores) for every other case.
+two above a head dim of 128, f32 on the CUDA cores) for every other case,
+head dims up to 256 among them.
 
 The (q-block × kv-block) score grid is a 2D index space (DESIGN.md §5);
 on the TPU one sequential grid walks its cells in curve order. On the GPU
@@ -42,7 +43,7 @@ __all__ = ["SCHEDULES", "build_schedule", "flash_attention_fwd", "flash_design",
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_BLOCK = 128
-_MAX_HEAD_DIM = 128
+_MAX_HEAD_DIM = 256  # the simple design's widest build (gemma3-1b's D)
 _SM90_SIZES = (64, 128)  # D, block_q and block_k of the sm90 design
 SCHEDULES = ("row_major", "morton", "hilbert")
 
@@ -150,7 +151,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Heads are pre-folded into the batch axis (ops.py handles GQA). f32 or
     bf16, arithmetic in f32, output in q's dtype; the causal diagonal is
-    aligned to the end and a row with no key gives 0. D is at most 128;
+    aligned to the end and a row with no key gives 0. D is at most 256;
     block_q and block_k are at most 128 and divide Sq and Sk (ops.py
     picks them, as the JAX package does). Anything else raises. The
     output does not depend on ``schedule`` beyond f32 rounding. On the

@@ -11,21 +11,27 @@ minus ``interpret``, plus ``out=``:
 ``stencil_sum_blocks``   the repack form's tap sum over halo-extended blocks.
 
 The fused step and the resident sum have two CUDA designs, and
-:func:`fused_design` (a pure function of T, g, S and C) picks one:
-``csrc/stencil3d_sm90.cu`` (compile-time shapes, register tiling along k,
-and, where that costs no thread block per SM, persistent thread blocks
-that prefetch the next window with cp.async) for
+:func:`fused_design` (a pure function of T, g, S, C and the dtype) picks
+one: ``csrc/stencil3d_sm90.cu`` (compile-time shapes, register tiling
+along k, and, where that costs no thread block per SM, persistent thread
+blocks that prefetch the next window with cp.async) for f32 stores with
 T ∈ {8, 16}, g ∈ {1, 2}, S·g | T, C ∈ {1, 2} where its shared memory fits;
 ``csrc/stencil3d.cu`` (one thread block per output block, the window in
-shared memory) for every other shape and for the repack form's tap sum.
+shared memory) for every other shape and dtype. The repack form's tap sum
+has two as well, and :func:`blocks_design` (T, g and the dtype) picks
+one: ``csrc/stencil3d_blocks_sm90.cu`` (persistent thread blocks fed by
+bulk copies into a ring, columns of sites in registers) for T ∈ {8, 16},
+g ∈ {1, 2}; the first design's ``halo_sum_kernel`` for the rest.
 The device decides the path: a CUDA tensor launches a kernel or raises,
 a CPU tensor runs the plain version in kernels/ref.py. Each launch adds
-one to ``LAUNCHES[name]`` (the port's one counter, kernels/_build.py) and
-the fused and resident launches one to ``STENCIL_DESIGN_LAUNCHES[design]``.
-Stores are
-f32 only; every other dtype raises. Outputs are allocated here (or passed
-as ``out=``, which must not share memory with the input) and kernels run
-on the current stream without synchronising.
+one to ``LAUNCHES[name]`` (the port's one counter, kernels/_build.py), the
+fused and resident launches one to ``STENCIL_DESIGN_LAUNCHES[design]`` and
+the repack launches one to ``BLOCKS_DESIGN_LAUNCHES[design]``.
+Stores and blocks are f32, bf16 or f16 (:data:`DTYPES`); every other
+dtype raises. The arithmetic is f32 in every dtype: the fused step writes
+in the store's dtype, the two tap sums in f32. Outputs are allocated here
+(or passed as ``out=``, which must not share memory with the input) and
+kernels run on the current stream without synchronising.
 """
 
 from __future__ import annotations
@@ -42,7 +48,8 @@ from . import _build, ref
 from .rules import RULES, get_rule
 
 __all__ = ["stencil_sum_blocks", "stencil_sum_resident", "stencil_step_fused",
-           "LAUNCHES", "reset_launches", "SMEM_LIMIT_BYTES", "fused_design",
+           "DTYPES", "LAUNCHES", "reset_launches", "SMEM_LIMIT_BYTES",
+           "blocks_design", "blocks_sm90_smem_bytes", "fused_design",
            "fused_smem_bytes", "halo_smem_bytes", "sm90_smem_bytes"]
 
 LAUNCHES, reset_launches = _build.LAUNCHES, _build.reset_launches
@@ -53,6 +60,11 @@ SMEM_LIMIT_BYTES = 232_448
 _TABLE_SMEM_BYTES = 4 * (27 + 6)
 # What the Hopper design (csrc/stencil3d_sm90.cu) takes.
 _SM90_T, _SM90_G, _SM90_C = (8, 16), (1, 2), (1, 2)
+# The store dtypes every kernel takes, by the code its C entry point reads.
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# csrc/stencil3d_blocks_sm90.cu: threads per thread block, and each
+# thread's column of sites along k (NZ) times along j (NX)
+_BLOCKS_NT, _BLOCKS_NZ, _BLOCKS_NX = 128, 4, 4
 
 _RULE_IDS = {"gol": 0, "jacobi": 1, "identity": 2, "wave": 3}
 _BC_IDS = {"periodic": 0, "dirichlet": 1, "neumann0": 2}
@@ -73,23 +85,62 @@ def sm90_smem_bytes(T: int, g: int, S: int, *, fields: int = 1,
     return itemsize * 3 * fields * (T + 2 * S * g) ** 3 + 2 * _TABLE_SMEM_BYTES
 
 
-def fused_design(T: int, g: int, S: int, C: int) -> str:
-    """The CUDA design ``stencil_step_fused`` launches for blocks of edge
-    T, radius g, S substeps and C channels (``stencil_sum_resident`` is S=1,
-    C=1): ``"sm90"`` (``csrc/stencil3d_sm90.cu``) for T ∈ {8, 16},
-    g ∈ {1, 2}, S·g | T and C ∈ {1, 2} where :func:`sm90_smem_bytes` fits
-    in :data:`SMEM_LIMIT_BYTES`; ``"simple"`` (``csrc/stencil3d.cu``) for
-    every other case. Nothing else, and never a failure, decides it."""
-    if T in _SM90_T and g in _SM90_G and C in _SM90_C and S >= 1 \
-            and T % (S * g) == 0 \
+def fused_design(T: int, g: int, S: int, C: int,
+                 dtype: torch.dtype = torch.float32) -> str:
+    """The CUDA design ``stencil_step_fused`` launches for a ``dtype`` store
+    of blocks of edge T, radius g, S substeps and C channels
+    (``stencil_sum_resident`` is S=1, C=1): ``"sm90"``
+    (``csrc/stencil3d_sm90.cu``) for f32 with T ∈ {8, 16}, g ∈ {1, 2},
+    S·g | T and C ∈ {1, 2} where :func:`sm90_smem_bytes` fits in
+    :data:`SMEM_LIMIT_BYTES`; ``"simple"`` (``csrc/stencil3d.cu``) for
+    every other case, bf16 and f16 stores among them. Nothing else, and
+    never a failure, decides it."""
+    if dtype == torch.float32 and T in _SM90_T and g in _SM90_G \
+            and C in _SM90_C and S >= 1 and T % (S * g) == 0 \
             and sm90_smem_bytes(T, g, S, fields=C) <= SMEM_LIMIT_BYTES:
         return "sm90"
     return "simple"
 
 
+def _blocks_plan(T: int) -> tuple[int, int]:
+    """(blocks per round, ring stages) of csrc/stencil3d_blocks_sm90.cu at
+    block edge T: a round gives each block (T/NZ)·T·(T/NX) columns of the
+    thread block's 128 threads, and the ring holds two rounds (four stages
+    at least)."""
+    ncol = (T // _BLOCKS_NZ) * T * (T // _BLOCKS_NX)
+    r = 1 if ncol >= _BLOCKS_NT else _BLOCKS_NT // ncol
+    return r, max(2 * r, 4)
+
+
+def blocks_sm90_smem_bytes(T: int, g: int, itemsize: int = 4) -> int:
+    """Shared memory of one thread block of the Hopper repack design: a
+    ring of :func:`_blocks_plan` stages, each one (T+2g)³ window in the
+    blocks' dtype, and an 8-byte mbarrier per stage."""
+    stages = _blocks_plan(T)[1]
+    return stages * (T + 2 * g) ** 3 * itemsize + 8 * stages
+
+
+def blocks_design(T: int, g: int, dtype: torch.dtype = torch.float32) -> str:
+    """The CUDA design ``stencil_sum_blocks`` launches for ``dtype`` blocks
+    of core edge T and radius g: ``"sm90"`` (``csrc/stencil3d_blocks_sm90.cu``)
+    for T ∈ {8, 16}, g ∈ {1, 2} and f32, bf16 or f16, where one (T+2g)³
+    window is a multiple of 16 bytes (a bulk copy's unit) and
+    :func:`blocks_sm90_smem_bytes` fits in :data:`SMEM_LIMIT_BYTES`;
+    ``"simple"`` (``csrc/stencil3d.cu`` ``halo_sum_kernel``) for every
+    other case. Nothing else, and never a failure, decides it."""
+    if dtype not in DTYPES or T not in _SM90_T or g not in _SM90_G:
+        return "simple"
+    item = torch.empty((), dtype=dtype).element_size()
+    if (T + 2 * g) ** 3 * item % 16 == 0 \
+            and blocks_sm90_smem_bytes(T, g, item) <= SMEM_LIMIT_BYTES:
+        return "sm90"
+    return "simple"
+
+
 def halo_smem_bytes(T: int, g: int, itemsize: int = 4) -> int:
-    """Shared memory of one stencil_sum_blocks thread block: one (T+2g)³
-    halo-extended block."""
+    """Shared memory of one thread block of the first repack design: one
+    (T+2g)³ halo-extended block, widened to f32 whatever the blocks'
+    dtype."""
     return itemsize * (T + 2 * g) ** 3
 
 
@@ -97,13 +148,12 @@ def halo_smem_bytes(T: int, g: int, itemsize: int = 4) -> int:
 def _lib() -> ctypes.CDLL:
     lib = _build.library("stencil3d")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.repro_stencil_step_fused_f32.argtypes = [
-        p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, f, f, f, p]
-    lib.repro_stencil_sum_resident_f32.argtypes = [p, p, p, p, i, i, i, p]
-    lib.repro_stencil_sum_blocks_f32.argtypes = [p, p, p, i, i, i, p]
-    for fn in (lib.repro_stencil_step_fused_f32,
-               lib.repro_stencil_sum_resident_f32,
-               lib.repro_stencil_sum_blocks_f32):
+    lib.repro_stencil_step_fused.argtypes = [
+        p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, f, f, f, i, p]
+    lib.repro_stencil_sum_resident.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.repro_stencil_sum_blocks.argtypes = [p, p, p, i, i, i, i, p]
+    for fn in (lib.repro_stencil_step_fused, lib.repro_stencil_sum_resident,
+               lib.repro_stencil_sum_blocks):
         fn.restype = ctypes.c_int
     return lib
 
@@ -121,6 +171,15 @@ def _lib_sm90() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _lib_blocks_sm90() -> ctypes.CDLL:
+    lib = _build.library("stencil3d_blocks_sm90")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.repro_stencil_sum_blocks_sm90.argtypes = [p, p, p, i, i, i, i, p]
+    lib.repro_stencil_sum_blocks_sm90.restype = ctypes.c_int
+    return lib
+
+
 def _check(t: torch.Tensor, name: str, shape: tuple, dtype: torch.dtype,
            device: torch.device) -> None:
     if tuple(t.shape) != shape:
@@ -134,9 +193,9 @@ def _check(t: torch.Tensor, name: str, shape: tuple, dtype: torch.dtype,
 
 
 def _check_store(store: torch.Tensor, name: str) -> None:
-    if store.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32 (the only store dtype the "
-                        f"kernels take), got {store.dtype}")
+    if store.dtype not in DTYPES:
+        raise TypeError(f"{name} must be float32, bfloat16 or float16 (the "
+                        f"dtypes the kernels take), got {store.dtype}")
     if store.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} is on {store.device}; use cuda or cpu")
     if not store.is_contiguous():
@@ -149,11 +208,11 @@ def _check_smem(nbytes: int, what: str) -> None:
                          f"thread block, over the {SMEM_LIMIT_BYTES} B limit")
 
 
-def _output(out: torch.Tensor | None, shape: tuple, src: torch.Tensor,
-            src_name: str) -> torch.Tensor | None:
+def _output(out: torch.Tensor | None, shape: tuple, dtype: torch.dtype,
+            src: torch.Tensor, src_name: str) -> torch.Tensor | None:
     if out is None:
         return None
-    _check(out, "out", shape, torch.float32, src.device)
+    _check(out, "out", shape, dtype, src.device)
     if out.untyped_storage().data_ptr() == src.untyped_storage().data_ptr():
         raise ValueError(f"out must not share memory with {src_name}")
     return out
@@ -161,16 +220,17 @@ def _output(out: torch.Tensor | None, shape: tuple, src: torch.Tensor,
 
 def _core_output(out: torch.Tensor | None, shape: tuple,
                  store: torch.Tensor) -> tuple[torch.Tensor | None, int]:
-    """Check the fused step's ``out`` and return it with its channel
-    stride in blocks. A stacked ``(C, nb, T, T, T)`` out may be the core
-    of a larger store (``ext[:, :nb]``): each channel contiguous, the
-    channels ``out_nb >= nb`` blocks apart. Any other out is contiguous."""
+    """Check the fused step's ``out`` (in the store's dtype) and return it
+    with its channel stride in blocks. A stacked ``(C, nb, T, T, T)`` out
+    may be the core of a larger store (``ext[:, :nb]``): each channel
+    contiguous, the channels ``out_nb >= nb`` blocks apart. Any other out
+    is contiguous."""
     nb, T3 = shape[-4], shape[-1] ** 3
     if out is None or out.is_contiguous() or out.ndim != 5:
-        return _output(out, shape, store, "store"), nb
-    if tuple(out.shape) != shape or out.dtype != torch.float32 \
+        return _output(out, shape, store.dtype, store, "store"), nb
+    if tuple(out.shape) != shape or out.dtype != store.dtype \
             or out.device != store.device:
-        _check(out, "out", shape, torch.float32, store.device)
+        _check(out, "out", shape, store.dtype, store.device)
     out_nb, rem = divmod(out.stride(0), T3)
     if rem or out_nb < nb or not out[0].is_contiguous():
         raise ValueError("out must be contiguous, or the core (C, nb, T, T, T) "
@@ -188,14 +248,19 @@ def _emit(result: torch.Tensor, out: torch.Tensor | None) -> torch.Tensor:
     return out
 
 
-def _launch(name: str, design: str | None, device: torch.device, *args) -> None:
-    """Launch ``name``'s kernel of ``design`` ("sm90", "simple", or None
-    for the repack sum, which has one design) and count it."""
-    lib = _lib_sm90() if design == "sm90" else _lib()
-    fn = getattr(lib, f"repro_{name}{'_sm90' if design == 'sm90' else ''}_f32")
-    _build.launch(lib, name, fn, device, *args)
-    if design is not None:
-        _build.STENCIL_DESIGN_LAUNCHES[design] += 1
+def _launch(name: str, design: str, device: torch.device, *args) -> None:
+    """Launch ``name``'s kernel of ``design`` ("sm90" or "simple") and
+    count it, under its design too."""
+    if design == "simple":
+        lib, entry = _lib(), f"repro_{name}"
+    elif name == "stencil_sum_blocks":
+        lib, entry = _lib_blocks_sm90(), "repro_stencil_sum_blocks_sm90"
+    else:
+        lib, entry = _lib_sm90(), f"repro_{name}_sm90_f32"
+    _build.launch(lib, name, getattr(lib, entry), device, *args)
+    counts = (_build.BLOCKS_DESIGN_LAUNCHES if name == "stencil_sum_blocks"
+              else _build.STENCIL_DESIGN_LAUNCHES)
+    counts[design] += 1
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -212,8 +277,9 @@ def stencil_step_fused(store: torch.Tensor, weights: torch.Tensor,
     """S fused timesteps over the resident store, one device-memory
     round trip.
 
-    store:   (nb_src, T, T, T) f32, or the stacked (C, nb_src, T, T, T)
-             store when the rule declares C > 1 (DESIGN.md §9)
+    store:   (nb_src, T, T, T) f32, bf16 or f16, or the stacked
+             (C, nb_src, T, T, T) store when the rule declares C > 1
+             (DESIGN.md §9)
     weights: (2g+1, 2g+1, 2g+1) f32 tap weights
     nbr:     (nb, 27) int32 neighbour table (core.neighbors), nb ≤ nb_src
     bnd:     (nb, 6) int32 clamped-face flags; required when ``bc`` is
@@ -221,10 +287,11 @@ def stencil_step_fused(store: torch.Tensor, weights: torch.Tensor,
     g, S:    stencil radius and substeps per launch; S·g must divide T
     rule:    "gol" | "jacobi" | "identity" | "wave" (kernels/rules.py)
     bc:      boundary contract (core.boundary), uniform or mixed
-    out:     optional (C,) nb, T, T, T f32 output, not sharing memory
-             with ``store``: contiguous, or for a stacked store the core
-             ``ext[:, :nb]`` of a larger contiguous store
-    returns: the store's computed core after S timesteps, f32
+    out:     optional (C,) nb, T, T, T output in the store's dtype, not
+             sharing memory with ``store``: contiguous, or for a stacked
+             store the core ``ext[:, :nb]`` of a larger contiguous store
+    returns: the store's computed core after S timesteps, in the store's
+             dtype (every substep runs in f32; the result rounds once)
     """
     r = get_rule(rule)
     if store.ndim not in (4, 5):
@@ -269,8 +336,8 @@ def stencil_step_fused(store: torch.Tensor, weights: torch.Tensor,
         raise ValueError(f"rule {r.name!r} has no CUDA kernel; known: "
                          f"{sorted(_RULE_IDS)}")
     if out is None:
-        out = torch.empty(out_shape, dtype=torch.float32, device=dev)
-    _fused_on_card(fused_design(T, g, S, C), store, weights, nbr,
+        out = torch.empty(out_shape, dtype=store.dtype, device=dev)
+    _fused_on_card(fused_design(T, g, S, C, store.dtype), store, weights, nbr,
                    bnd if bc.clamped else None, out, out_nb, g=g, S=S,
                    rule=r.name, bc=bc)
     return out
@@ -286,11 +353,11 @@ def _fused_on_card(design: str, store, weights, nbr, bnd, out, out_nb: int, *,
     ``overlap=True`` or ``False`` forces either way, for timing."""
     nb, nb_src, T = nbr.shape[0], store.shape[-4], store.shape[-1]
     dest, dest_nb = out, out_nb
-    extra = ()
+    extra = (DTYPES[store.dtype],)
     if design == "sm90":
         store = _aligned(store)
         if out.data_ptr() % 16:
-            dest = torch.empty(out.shape, dtype=torch.float32, device=out.device)
+            dest = torch.empty(out.shape, dtype=out.dtype, device=out.device)
             dest_nb = nb
         extra = (-1 if overlap is None else int(overlap),)
     axes = bc.axes
@@ -309,7 +376,8 @@ def stencil_sum_resident(store: torch.Tensor, weights: torch.Tensor,
                          out: torch.Tensor | None = None) -> torch.Tensor:
     """In-kernel halo streaming over the persistent block store.
 
-    store:   (nb, T, T, T) f32 — SFC-ordered, no halo duplication
+    store:   (nb, T, T, T) f32, bf16 or f16 — SFC-ordered, no halo
+             duplication
     weights: (2g+1, 2g+1, 2g+1) f32
     nbr:     (nb, 27) int32 periodic neighbour table of the same ordering
     returns: (nb, T, T, T) f32, bit-identical to
@@ -330,12 +398,13 @@ def stencil_sum_resident(store: torch.Tensor, weights: torch.Tensor,
     _check(weights, "weights", (s, s, s), torch.float32, dev)
     _check(nbr, "nbr", (nb, 27), torch.int32, dev)
     _check_smem(fused_smem_bytes(T, g, 1), f"resident sum T={T}, g={g}")
-    out = _output(out, (nb, T, T, T), store, "store")
+    out = _output(out, (nb, T, T, T), torch.float32, store, "store")
     if dev.type == "cpu":
         return _emit(ref.stencil_sum_resident_ref(store, weights, nbr), out)
     if out is None:
         out = torch.empty((nb, T, T, T), dtype=torch.float32, device=dev)
-    _resident_on_card(fused_design(T, g, 1, 1), store, weights, nbr, out, g=g)
+    _resident_on_card(fused_design(T, g, 1, 1, store.dtype), store, weights,
+                      nbr, out, g=g)
     return out
 
 
@@ -344,7 +413,7 @@ def _resident_on_card(design: str, store, weights, nbr, out, *, g: int,
     """Launch ``design``'s resident tap sum on checked CUDA tensors
     (``overlap`` as in :func:`_fused_on_card`)."""
     nb, T = store.shape[0], store.shape[1]
-    dest, extra = out, ()
+    dest, extra = out, (DTYPES[store.dtype],)
     if design == "sm90":
         store = _aligned(store)
         if out.data_ptr() % 16:
@@ -361,7 +430,8 @@ def stencil_sum_blocks(blocks: torch.Tensor, weights: torch.Tensor, *,
                        g: int, out: torch.Tensor | None = None) -> torch.Tensor:
     """acc[b] = sum_d w[d] * blocks[b, z+d] for every block b.
 
-    blocks:  (nb, T+2g, T+2g, T+2g) f32 — SFC-ordered, halo-extended
+    blocks:  (nb, T+2g, T+2g, T+2g) f32, bf16 or f16 — SFC-ordered,
+             halo-extended
     weights: (2g+1, 2g+1, 2g+1) f32
     returns: (nb, T, T, T) f32
     """
@@ -377,11 +447,28 @@ def stencil_sum_blocks(blocks: torch.Tensor, weights: torch.Tensor, *,
     dev = blocks.device
     _check(weights, "weights", (s, s, s), torch.float32, dev)
     _check_smem(halo_smem_bytes(T, g), f"repack sum T={T}, g={g}")
-    out = _output(out, (nb, T, T, T), blocks, "blocks")
+    out = _output(out, (nb, T, T, T), torch.float32, blocks, "blocks")
     if dev.type == "cpu":
         return _emit(ref.stencil_sum_ref(blocks, weights), out)
     if out is None:
         out = torch.empty((nb, T, T, T), dtype=torch.float32, device=dev)
-    _launch("stencil_sum_blocks", None, dev, blocks.data_ptr(),
-            out.data_ptr(), weights.data_ptr(), nb, T, g)
+    _blocks_on_card(blocks_design(T, g, blocks.dtype), blocks, weights, out, g=g)
     return out
+
+
+def _blocks_on_card(design: str, blocks, weights, out, *, g: int) -> None:
+    """Launch ``design``'s repack tap sum on checked CUDA tensors (its own
+    limits are checked again in C, which returns an error that raises).
+    The Hopper design's bulk copies and 16-byte stores need 16-byte aligned
+    blocks and out: a misaligned one goes through an aligned copy."""
+    nb, W = blocks.shape[0], blocks.shape[1]
+    dest = out
+    if design == "sm90":
+        blocks = _aligned(blocks)
+        if out.data_ptr() % 16:
+            dest = torch.empty_like(out)
+    _launch("stencil_sum_blocks", design, blocks.device, blocks.data_ptr(),
+            dest.data_ptr(), weights.data_ptr(), nb, W - 2 * g, g,
+            DTYPES[blocks.dtype])
+    if dest is not out:
+        out.copy_(dest)

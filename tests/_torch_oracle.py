@@ -476,8 +476,10 @@ def flash_inputs(shape, seed: int) -> tuple[np.ndarray, ...]:
 
 # ops.flash_attention at sequence lengths whose blocks, halved from 128
 # until they divide S, are not multiples of 16 (S=100 takes one block of
-# 100), and at a head dim that is not a multiple of 8: (S, Hq, Hkv, D)
-BLOCK_CASES = tuple((S, 3, 1, 64) for S in (8, 12, 24, 100)) + ((24, 2, 1, 12),)
+# 100), at a head dim that is not a multiple of 8, and at head dims above
+# 128 (gemma3-1b's 256): (S, Hq, Hkv, D)
+BLOCK_CASES = (tuple((S, 3, 1, 64) for S in (8, 12, 24, 100))
+               + ((24, 2, 1, 12), (24, 2, 1, 160), (48, 2, 1, 256)))
 
 
 def any_block_inputs(case) -> tuple[np.ndarray, ...]:

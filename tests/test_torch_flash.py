@@ -120,7 +120,8 @@ def test_gqa_flash_attention_matches_jax(ref_flash):
 def test_flash_attention_takes_every_block_the_reference_takes(ref_flash, case,
                                                                causal):
     """Blocks halved from 128 until they divide S (8, 12, 24 and 100),
-    and D=12: the JAX package runs them, and so does the port."""
+    and D ∈ {12, 160, 256}: the JAX package runs them, and so does the
+    port."""
     q, k, v = _t(*any_block_inputs(case))
     got = tops.flash_attention(q, k, v, causal, "morton", 128, 128)
     assert got.shape == q.shape
@@ -185,7 +186,7 @@ def test_wrapper_checks_and_counts_no_launch_on_cpu():
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         flash_attention_fwd(q, k.double(), v)
     with pytest.raises(ValueError, match="head dim"):
-        wide = torch.zeros(2, 64, 136)
+        wide = torch.zeros(2, 64, 264)
         flash_attention_fwd(wide, wide, wide)
     with pytest.raises(ValueError, match="BH or D"):
         flash_attention_fwd(q, k[:1], v[:1])
@@ -204,6 +205,9 @@ def test_wrapper_checks_and_counts_no_launch_on_cpu():
     (torch.bfloat16, 96, 128, 128, "simple"),
     (torch.bfloat16, 64, 16, 128, "simple"),
     (torch.bfloat16, 64, 128, 32, "simple"),
+    (torch.bfloat16, 256, 128, 128, "simple"),  # gemma3-1b's head dim
+    (torch.bfloat16, 160, 64, 64, "simple"),
+    (torch.float32, 256, 64, 64, "simple"),
 ])
 def test_flash_design_is_a_function_of_dtype_d_and_blocks(dtype, d, block_q,
                                                           block_k, want):

@@ -69,9 +69,9 @@ def _refused_call(case):
         return lambda: tk.stencil_step_fused(big, w, one, g=1, S=8)
     if case == "bnd":
         return lambda: tk.stencil_step_fused(store, w, nbr, g=1, bc="neumann0")
-    if case == "blocks_dtype":
-        half = torch.zeros((1, 6, 6, 6), dtype=torch.float16)
-        return lambda: tk.stencil_sum_blocks(half, w, g=1)
+    if case == "blocks_dtype":  # f32, bf16 and f16 blocks are taken
+        wide = torch.zeros((1, 6, 6, 6), dtype=torch.float64)
+        return lambda: tk.stencil_sum_blocks(wide, w, g=1)
     raise AssertionError(case)
 
 
