@@ -15,7 +15,8 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    its 44 kernels and no ``FFMA`` (no contracted multiply-add), that of
    the Hopper repack design its 12 kernels, no ``FFMA`` and ``UBLKCP``
    (its 1-D bulk copies);
-2. every kernel against its plain PyTorch version on the card, at M=64:
+2. every kernel against its plain PyTorch version on the card, at M=64
+   (fault F2's fp8 stores at M=256 too):
    4 orderings × S ∈ {1, 2, 4} × {gol, jacobi, wave} × {periodic,
    dirichlet, neumann0, mixed}, plus g=2 with T=8, S=2, and the resident
    and repack tap sums against each other and their plain versions; every
@@ -28,7 +29,13 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    forced onto the first design where the Hopper design runs; fault F2:
    the fused step on bf16 and f16 stores (gol and wave, periodic and
    neumann0, S ∈ {1, 2}) and the resident sum on them, all of the first
-   design; every fused, resident and repack case asserts the design
+   design; F2 in fp8: the fused step (gol, jacobi, wave; periodic and
+   neumann0; S ∈ {1, 2} at M=64, and gol and jacobi at M=256, S=4), the
+   resident sum and the repack sum on float8_e4m3fn and float8_e5m2 stores
+   holding ±[440, 480] and NaN, bit-equal to the plain version wherever it
+   is a number and NaN where it is NaN (XLA's rounding: e4m3fn above 464
+   is NaN), all of the first design; every fused, resident and repack
+   case asserts the design
    that ran it, by the per-design launch count; the
    fused kernel on extended stores (core + shell blocks filled by the
    distributed path's own exchange and scatter, 2×2×2 local mesh of M=64
@@ -50,13 +57,17 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    blocks ``ops._pick_block`` gives S ∈ {12, 24, 100} from 128 (12, 24
    and 100), causal and not, in f32 and bf16, and at D=12 (padded to 16);
    the simple design at D ∈ {160, 256} (fault F1: two threads a q row),
-   f32 and bf16, causal and not, blocks 64 and 128;
+   f32 and bf16, causal and not, blocks 64 and 128; fault F3, f16 and both
+   fp8 dtypes at BH=60, S=2048, D=64 and at smaller shapes (D=40 padded,
+   Sq > Sk, non-causal), and F1 up to D=1024: D ∈ {320, 512, 1024} at
+   BH=16, S=2048 in bf16 and f32, and three small wide cases;
    and one launch at S=32768,
    BH=15 whose last 256 rows must equal the plain version on those
    queries (the diagonal is aligned to the end) — within one bf16 unit in
-   the last place (|d| <= 1e-5 + 2^-7 |plain|) for bf16 and 1e-5
-   (relative and absolute) for f32, and the largest difference between
-   schedules;
+   the last place (|d| <= 1e-5 + 2^-7 |plain|) for bf16, within one unit
+   in the last place of the plain value plus 1e-5 for f16 and fp8, and
+   1e-5 (relative and absolute) for f32, and the largest difference
+   between schedules;
 3. the main paths at full size (``repro_torch.configs.gol3d.CHIP_*``),
    each with the launch counts set to 0 just before and read just after,
    and every fused, resident and repack launch of a Hopper design:
@@ -72,6 +83,24 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    equal ``reference_run(16)``; per shard ⌈16/4⌉ fused launches and six
    ``gather_rows`` launches a round), and the wave pipeline on 2×2×2
    under mixed(k=neumann0), K=8, S=2 (8 steps of ``fields_step_ref``);
+   the slice, the checkpointed main path in a temporary directory removed
+   at the end: ``CheckpointedRun`` over ``CHIP_MAIN`` (M=256, Hilbert,
+   T=8, S=4) for K=16 with a checkpoint every 4 steps, equal to
+   ``Gol3d.run_resident(16)`` from the same state with one fused launch per
+   S-deep chunk; killed at step 6 and resumed onto Morton, T=16, S=2; the
+   newest checkpoint bit-flipped, quarantined and the one before restored;
+   NaN poisoned at step 5 of a jacobi run (``RunHealthError``, last good
+   step 4); ``python -m repro_torch.launch.faults`` killed by ``os._exit``
+   (exit 17) and resumed by a second process to run 1's crc; and
+   ``python -m repro_torch.launch.elastic --stencil`` from eight M=128
+   shards on a local 2×2×2 mesh to one M=256 shard, bit-exact (its
+   launches read from its output: fused and ``gather_rows``); then the
+   checkpointed run's ms per timestep against the plain run in turns,
+   each part of one checkpoint (unblockize, device->host copy, two crc32s,
+   health guard, npz write, fsync) and of one restore (read, crc verify,
+   blockize) alone, the measured checkpoint share of an interval beside
+   ``checkpoint_traffic_fraction(256, 8, 1, 4, S=4)`` = 0.1818, and the
+   interval at which a checkpoint would be half the wall;
    full-width ``smollm-360m`` (weights from a seeded ``torch.Generator``):
    ``Model.prefill`` at B=4, S=2048 with ``use_flash_kernel`` (exactly
    one ``flash_attention_fwd`` launch per layer, every one of the Hopper
@@ -109,7 +138,12 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    with TFLOP/s; the simple design in f32 at S=2048 against 67 TFLOP/s,
    and at D=256 (BH=16, S=2048, bf16) beside SDPA and its bound;
    ``stencil_sum_blocks`` in both designs, in turns, at M=128 and at
-   M=256 in f32 and bf16, beside conv3d and its bound; the repack path's
+   M=256 in f32 and bf16, beside conv3d and its bound; the three stencil
+   kernels on fp8 stores at M=256 beside their plain versions, their
+   bounds and conv3d in f16; the simple flash design in f16 and fp8 at
+   BH=60, S=2048, D=64 (SDPA in f16 beside f16; no PyTorch call takes
+   fp8) and at D ∈ {320, 512, 1024} (BH=16, S=2048) in bf16 and f32
+   beside SDPA, each against its bound; the repack path's
    ms per timestep (host clock) and the kernel's share of it;
    prefill ms and tokens/s
    with the kernel and with plain attention, decode ms per step and
@@ -126,10 +160,13 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -139,6 +176,8 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
+F16_FLOP_PER_S = 989e12        # H100 SXM fp16 tensor cores, dense
+FP8_FLOP_PER_S = 1979e12       # H100 SXM fp8 tensor cores, dense
 SOURCES = {"stencil_step_fused": "src/repro_torch/kernels/csrc/stencil3d_sm90.cu",
            "stencil_sum_resident": "src/repro_torch/kernels/csrc/stencil3d_sm90.cu",
            "stencil_sum_blocks": "src/repro_torch/kernels/csrc/stencil3d_blocks_sm90.cu",
@@ -183,6 +222,8 @@ LM_LOGIT_TOL = 0.1
 # two sit 0.05 apart, as far as the masked_sdpa prefill: 32 layers of
 # bf16 rounding carry any flip that far)
 LM_F32_LOGIT_TOL = 1e-4
+# a checkpoint every CKPT_INTERVAL steps on the checkpointed main path
+CKPT_INTERVAL = 4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -251,8 +292,16 @@ def main() -> int:
                                           to_store)
     from repro_torch.stencil.pipeline import (DistributedPipeline,
                                               ResidentPipeline,
+                                              checkpoint_traffic_fraction,
                                               fused_items_per_launch,
                                               resident_bytes_per_step)
+    from repro_torch.checkpoint import ckpt as CK
+    from repro_torch.launch.faults import (KILL_EXIT, FaultPlan, SimulatedCrash,
+                                           bitflip_chunk, initial_state,
+                                           state_crc)
+    from repro_torch.stencil.runner import (CheckpointedRun, RunHealthError,
+                                            health_check)
+    FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)  # faults F2 and F3
 
     KINDS = tuple(spec.name for spec in CHIP_ORDERINGS)
     M_MAIN, T_MAIN, G_MAIN = CHIP_MAIN.M, CHIP_MAIN.block_T, CHIP_MAIN.g
@@ -327,6 +376,29 @@ def main() -> int:
         check(ran == {**{d_: 0 for d_ in ran}, design: 1},
               f"{what}: launches by design {ran}, want one {design}")
         return out
+
+    def same_bits(got, want):
+        """Bit-equal wherever ``want`` is a number, and NaN exactly where
+        it is NaN (a NaN's sign and payload follow the arithmetic)."""
+        if got.shape != want.shape or got.dtype != want.dtype:
+            return False
+        nan_g, nan_w = torch.isnan(got.float()), torch.isnan(want.float())
+        width = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[got.element_size()]
+        gb, wb = got.contiguous().view(width), want.contiguous().view(width)
+        return torch.equal(nan_g, nan_w) and torch.equal(gb[~nan_w], wb[~nan_w])
+
+    def fp8_cube(rule, M_, C=1):
+        """An f32 cube for an fp8 store: the rule's values with, off gol,
+        a fifth of the sites in ±[440, 480] (where e4m3fn's 448 and its NaN
+        above 464 lie) and one site in 200 NaN."""
+        a = cube_for(rule, M_, C)
+        if rule != "gol":
+            big = torch.from_numpy(rng.random(a.shape) < 0.2).to(dev)
+            mag = torch.from_numpy(rng.uniform(440, 480, a.shape).astype(np.float32)
+                                   * rng.choice([-1.0, 1.0], a.shape).astype(np.float32))
+            a = torch.where(big, mag.to(dev), a)
+        nan = torch.from_numpy(rng.random(a.shape) < 0.005).to(dev)
+        return a.masked_fill(nan, float("nan"))
 
     def stencil_on(design, fn, what):
         """fn(), one fused or resident launch of ``design``."""
@@ -517,6 +589,66 @@ def main() -> int:
         f"comparisons bit-equal, every one of the first design "
         f"({time.perf_counter() - t0:.1f} s)")
 
+    # fault F2, fp8: the fused step (gol, jacobi and wave at M=64 under the
+    # periodic and neumann0 contracts, S ∈ {1, 2}; gol and jacobi at
+    # M=256, S=4), the resident tap sum (random weights) and the repack tap
+    # sum (every SUM_SHAPES shape at M=64, T=8 at M=256) on float8_e4m3fn
+    # and float8_e5m2 stores holding ±[440, 480] and NaN, each of the first
+    # design and bit-equal to its plain version (NaN where it is NaN; e4m3fn
+    # results above 464 are NaN, as XLA rounds)
+    t0 = time.perf_counter()
+    n_cmp, n_nan, T, g = 0, 0, 8, 1
+    fp8_cases = [(M, rule, bcn, S) for rule in ("gol", "jacobi", "wave")
+                 for bcn in ("periodic", "neumann0") for S in (1, 2)]
+    fp8_cases += [(M_MAIN, rule, "periodic", S_MAIN) for rule in ("gol", "jacobi")]
+    for dtype in FP8:
+        for M_, rule, bcn, S in fp8_cases:
+            C = 2 if rule == "wave" else 1
+            cube = fp8_cube(rule, M_, C)
+            store = ref.round_to(blockize_fields(cube, T, "hilbert") if C == 2
+                                 else blockize(cube[0], T, "hilbert"), dtype)
+            bc = bc_of(bcn)
+            nbr = neighbor_table_device("hilbert", M_ // T,
+                                        periodic=axes_periodic(bc), device=dev)
+            bnd = boundary_face_table_device("hilbert", M_ // T, dev)
+            w = uniform_weights(g, dev)
+            what = f"fused {dtype} M={M_} {rule} {bcn} S={S}"
+            check(K.fused_design(T, g, S, C, dtype) == "simple", what)
+            got = stencil_on("simple", lambda: K.stencil_step_fused(
+                store, w, nbr, bnd, g=g, S=S, rule=rule, bc=bc), what)
+            want = ref.stencil_fused_ref(store, w, nbr, S=S, rule=rule, bc=bc,
+                                         bnd=bnd)
+            check(got.dtype == dtype and same_bits(got, want), f"{what} != plain")
+            n_nan += int(torch.isnan(want.float()).sum())
+            n_cmp += 1
+            del cube, store, got, want
+        for M_ in (M, M_MAIN):
+            cube = fp8_cube("jacobi", M_)[0]
+            store = ref.round_to(blockize(cube, T, "hilbert"), dtype)
+            nbr = neighbor_table_device("hilbert", M_ // T, device=dev)
+            got = stencil_on("simple", lambda: K.stencil_sum_resident(
+                store, w_rand, nbr, g=g), f"resident {dtype} M={M_}")
+            check(got.dtype == torch.float32 and same_bits(
+                got, ref.stencil_sum_resident_ref(store, w_rand, nbr)),
+                f"resident {dtype} M={M_} != plain")
+            n_cmp += 1
+            for T_, g_ in SUM_SHAPES if M_ == M else ((T, g),):
+                s_ = 2 * g_ + 1
+                halo = ref.round_to(blockize_with_halo(cube, T_, g_, "hilbert"), dtype)
+                w = torch.from_numpy(rng.normal(size=(s_, s_, s_)).astype(np.float32)).to(dev)
+                what = f"blocks {dtype} M={M_} T={T_} g={g_}"
+                check(K.blocks_design(T_, g_, dtype) == "simple", what)
+                got = blocks_on("simple", lambda: K.stencil_sum_blocks(halo, w, g=g_), what)
+                check(got.dtype == torch.float32
+                      and same_bits(got, ref.stencil_sum_ref(halo, w)), f"{what} != plain")
+                n_cmp += 1
+            del cube, store, got
+    sync()
+    log(f"F2, fp8 stores at M={M} and M={M_MAIN}: {n_cmp} fused, resident and "
+        f"repack comparisons bit-equal (NaN where the plain version has NaN: "
+        f"{n_nan} fused sites), every one of the first design "
+        f"({time.perf_counter() - t0:.1f} s)")
+
     # every instance of the Hopper stencil design, under each rule it is
     # built for and the four boundaries, at M=32 (random weights but for
     # gol, whose rule counts neighbours); and, on the first boundary's
@@ -669,20 +801,24 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def randn(*shape, dtype=torch.float32):
-        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+        return ref.round_to(torch.randn(*shape, generator=gen, device=dev), dtype)
 
     def flash_err(got, want, what):
         """max |got - want|, after checking it is within the tolerance of
-        got's dtype."""
+        got's dtype: 1e-5 in f32; in bf16, f16 and fp8 one unit in the last
+        place at the plain value plus 1e-5 (bf16 as PR 14 states it)."""
         g, w = got.float(), want.float()
-        if got.dtype == torch.bfloat16:
-            rtol, atol = FLASH_BF16_RTOL, FLASH_BF16_ATOL
-        else:
-            rtol = atol = FLASH_F32_TOL
         d = (g - w).abs()
+        if got.dtype == torch.float32:
+            tol = FLASH_F32_TOL + FLASH_F32_TOL * w.abs()
+        elif got.dtype == torch.bfloat16:
+            tol = FLASH_BF16_ATOL + FLASH_BF16_RTOL * w.abs()
+        else:
+            fi = torch.finfo(got.dtype)
+            tol = FLASH_BF16_ATOL + torch.exp2(torch.floor(torch.log2(
+                w.abs().clamp_min(fi.tiny)))) * fi.eps
         check(got.dtype == want.dtype and got.shape == want.shape
-              and bool(torch.isfinite(g).all())
-              and bool((d <= atol + rtol * w.abs()).all()),
+              and bool(torch.isfinite(g).all()) and bool((d <= tol).all()),
               f"flash_attention_fwd != plain: {what}: max |d| {d.max().item()}")
         return d.max().item()
 
@@ -742,6 +878,29 @@ def main() -> int:
     check({flash_design(c[5], c[0][3], c[2], c[3]) for c in wide_cases} == {"simple"},
           "head dims above 128 take the simple design")
     cases += wide_cases
+    # F3: f16 and both fp8 dtypes at the prefill's shape (BH=60, S=2048,
+    # D=64), and at D=40 (padded to 48), Sq > Sk, non-causal; F1 up to
+    # D=1024: D ∈ {320, 512, 1024} at BH=16, S=2048 in bf16 and f32 (NS =
+    # 4 and 8 threads a q row, keys staged 32 and 16 at a time, a q block
+    # over thread blocks of 256 threads), and small
+    # ones with other blocks and schedules
+    f3_cases = [((60, 2048, 2048, 64), True, FLASH_BLOCK, FLASH_BLOCK, "morton", dt)
+                for dt in (torch.float16,) + FP8]
+    f3_cases += [((2, 256, 256, 40), True, 64, 64, "hilbert", FP8[0]),
+                 ((2, 128, 64, 96), True, 32, 16, "morton", torch.float16),
+                 ((2, 256, 384, 64), False, 64, 128, "row_major", FP8[1])]
+    f1_wide = [((16, 2048, 2048, D), True, FLASH_BLOCK, FLASH_BLOCK, "morton", dt)
+               for D in (320, 512, 1024) for dt in (torch.bfloat16, torch.float32)]
+    f1_wide += [((2, 256, 256, 1024), False, 64, 64, "hilbert", torch.bfloat16),
+                ((2, 128, 192, 512), True, 16, 32, "row_major", torch.float32),
+                ((2, 256, 256, 600), True, 128, 64, "morton", torch.float16),
+                # q blocks of 100 rows over thread blocks of 64 (DP=512)
+                # and 32 (DP=1024) rows: the last one's rows past 100 idle
+                ((2, 200, 200, 512), True, 100, 100, "hilbert", torch.float32),
+                ((2, 200, 200, 1000), True, 100, 100, "morton", torch.bfloat16)]
+    check({flash_design(c[5], c[0][3], c[2], c[3]) for c in f3_cases + f1_wide}
+          == {"simple"}, "f16, fp8 and head dims above 256 take the simple design")
+    cases += f3_cases + f1_wide
     # the Hopper design: every (D, block_q, block_k) instance, causal; rows
     # with no key in an unvisited q block (384 x 256, 128-blocks) and in a
     # visited one (384 x 320, 128 x 64: rows 0..63 of q block 0); Sq < Sk;
@@ -905,6 +1064,248 @@ def main() -> int:
     log(f"main distributed wave: 2x2x2 local {M_D // 2} C=2 S=2 "
         f"mixed(k=neumann0) K=8 launches fused {counts['stencil_step_fused']} "
         f"gather {counts['gather_rows']}, equal to fields_step_ref")
+
+    # The slice: the checkpointed main path (CHIP_MAIN: M=256, Hilbert, T=8,
+    # S=4, g=1; K=16, a checkpoint every CKPT_INTERVAL steps, 64 MiB of f32
+    # state each) under CheckpointedRun, and its fault matrix, in a
+    # temporary directory removed at the end:
+    # 1. uninterrupted, equal to Gol3d.run_resident(16) from the same state
+    #    (the faults CLI's initial state), one fused launch per S-deep chunk;
+    # 2. killed at step 6 (raise), resumed onto Morton, T=16, S=2: equal to 1;
+    # 3. the newest checkpoint bit-flipped: resume quarantines it, restores
+    #    the one before and ends equal to 1;
+    # 4. NaN poisoned at step 5 (jacobi): RunHealthError at step 8 with
+    #    last_good_step 4, nothing checkpointed past 4;
+    # 5. the faults CLI killed by os._exit (exit 17), then resumed by a
+    #    second process to the crc of 1;
+    # 6. the elastic CLI: eight M=128 shards on a local 2×2×2 mesh killed
+    #    at step 6, resumed on one M=256 shard (Morton, T=4, S=1), bit-exact
+    #    against an uninterrupted resident run; its distributed half runs
+    #    gather_rows.
+    def fused_launches(pipe, chunks):
+        """The fused launches ``pipe.run_fn`` makes over these chunks."""
+        n = 0
+        for k in chunks:
+            full, rem = divmod(k, pipe.S)
+            n += full + (1 if rem and pipe._valid_S(rem) else rem)
+        return n
+
+    def raised(fn, exc):
+        """The exception of type ``exc`` that fn() raises (fn must raise)."""
+        try:
+            fn()
+        except exc as e:
+            return e
+        raise RuntimeError(f"{exc.__name__} was not raised")
+
+    def cli(module, *args, timeout=600):
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        return subprocess.run([sys.executable, "-m", module, *args], env=env,
+                              capture_output=True, text=True, timeout=timeout)
+
+    def cli_launches(text, prefix):
+        line = next(ln for ln in text.splitlines() if ln.startswith(prefix))
+        return json.loads(line[len(prefix):])
+
+    t1 = time.perf_counter()
+    K_C, IV = CHIP_MAIN_STEPS, CKPT_INTERVAL
+    state0 = initial_state("gol", M_MAIN, seed=0)
+    ck_app = Gol3d(CHIP_MAIN)
+    ck_app.state_path = apply_ordering(torch.from_numpy(state0).to(dev),
+                                       CHIP_MAIN.ordering)
+    ck_app.run_resident(K_C)
+    ck_want = ck_app.cube.cpu().numpy()
+    ck_pipe = ck_app.resident_pipeline()
+    chunks = [IV] * (K_C // IV)
+    work = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        d1, d2 = os.path.join(work, "run1"), os.path.join(work, "run2")
+        out1, counts = counted(lambda: CheckpointedRun(ck_pipe, d1, interval=IV)
+                               .run(state0, K_C))
+        check(counts["stencil_step_fused"] == fused_launches(ck_pipe, chunks),
+              f"checkpointed run: {counts} fused launches for chunks {chunks}")
+        check(out1.flags.c_contiguous and np.array_equal(out1, ck_want),
+              "checkpointed run != Gol3d.run_resident")
+        check(CK.valid_steps(d1) == list(range(0, K_C + 1, IV)),
+              f"checkpoints {CK.valid_steps(d1)}")
+        crc1 = state_crc(out1)
+        shutil.rmtree(d1)
+        log(f"slice 1, checkpointed: M={M_MAIN} {CHIP_MAIN.ordering.name} "
+            f"T={T_MAIN} S={S_MAIN} K={K_C} interval {IV}: launches fused "
+            f"{counts['stencil_step_fused']}, equal to Gol3d.run_resident, "
+            f"crc {crc1:#010x}")
+
+        _, counts = counted(lambda: raised(lambda: CheckpointedRun(
+            ck_pipe, d2, interval=IV, hooks=FaultPlan(
+                kill_at_step=6, kill_mode="raise").hooks()).run(state0, K_C),
+            SimulatedCrash))
+        check(CK.latest_step(d2) == 4 and counts["stencil_step_fused"]
+              == fused_launches(ck_pipe, [4, 2]), f"killed run: {counts}")
+        pipe2 = ResidentPipeline(M=M_MAIN, T=16, g=G_MAIN, kind="morton", S=2,
+                                 device=dev)
+        out2, counts = counted(lambda: CheckpointedRun(pipe2, d2, interval=IV)
+                               .run(state0, K_C))
+        check(counts["stencil_step_fused"] == fused_launches(pipe2, chunks[1:]),
+              f"resumed run: {counts}")
+        check(np.array_equal(out2, out1), "resume onto morton T=16 S=2 != run 1")
+        log(f"slice 2, killed at 6 (newest checkpoint 4), resumed onto morton "
+            f"T=16 S=2: launches fused {counts['stencil_step_fused']}, equal "
+            f"to run 1")
+
+        bitflip_chunk(d2, K_C)
+        out3, counts = counted(lambda: CheckpointedRun(ck_pipe, d2, interval=IV)
+                               .run(state0, K_C))
+        check(os.path.isdir(os.path.join(d2, f".corrupt_step_{K_C:08d}"))
+              and CK.valid_steps(d2) == list(range(0, K_C + 1, IV))
+              and counts["stencil_step_fused"] == fused_launches(ck_pipe, [IV]),
+              f"corrupt-chunk fallback: {CK.valid_steps(d2)}, {counts}")
+        check(np.array_equal(out3, out1), "resume past a corrupt chunk != run 1")
+        shutil.rmtree(d2)
+        log(f"slice 3, newest checkpoint bit-flipped: quarantined, step "
+            f"{K_C - IV} restored, launches fused "
+            f"{counts['stencil_step_fused']}, equal to run 1")
+
+        d4 = os.path.join(work, "run4")
+        j_pipe = ResidentPipeline(M=M_MAIN, T=T_MAIN, g=G_MAIN, kind="hilbert",
+                                  S=S_MAIN, rule="jacobi", device=dev)
+        err, counts = counted(lambda: raised(lambda: CheckpointedRun(
+            j_pipe, d4, interval=IV, hooks=FaultPlan(poison_at_step=5).hooks())
+            .run(initial_state("jacobi", M_MAIN, seed=0), K_C), RunHealthError))
+        check(err.step == 8 and err.last_good_step == 4 and "NaN" in err.reason
+              and CK.latest_step(d4) == 4, f"poison guard: {err}")
+        shutil.rmtree(d4)
+        log(f"slice 4, NaN poisoned at 5 (jacobi): RunHealthError at step "
+            f"{err.step}, last good step {err.last_good_step}; launches fused "
+            f"{counts['stencil_step_fused']}")
+
+        d5 = os.path.join(work, "run5")
+        args = ("--M", str(M_MAIN), "--T", str(T_MAIN), "--S", str(S_MAIN),
+                "--steps", str(K_C), "--interval", str(IV), "--ckpt-dir", d5)
+        r = cli("repro_torch.launch.faults", *args, "--kill-at", "6",
+                "--kill-mode", "exit")
+        check(r.returncode == KILL_EXIT and CK.latest_step(d5) == 4,
+              f"faults CLI kill: exit {r.returncode}\n{r.stdout}\n{r.stderr[-3000:]}")
+        r2 = cli("repro_torch.launch.faults", *args)
+        done = [ln for ln in r2.stdout.splitlines() if ln.startswith("FAULTS_DONE")]
+        sub = cli_launches(r2.stdout, "FAULTS_LAUNCHES ") if r2.returncode == 0 else {}
+        check(r2.returncode == 0 and done == [f"FAULTS_DONE step={K_C} crc={crc1:#010x}"]
+              and sub.get("stencil_step_fused") == fused_launches(ck_pipe, chunks[1:]),
+              f"faults CLI resume: exit {r2.returncode}\n{r2.stdout}\n{r2.stderr[-3000:]}")
+        shutil.rmtree(d5)
+        log(f"slice 5, faults CLI: killed with exit {r.returncode}, resumed by a "
+            f"second process: {done[0]} (run 1's crc), its launches {sub}")
+
+        r = cli("repro_torch.launch.elastic", "--stencil", "--from-mesh", "2,2,2",
+                "--to-mesh", "1,1,1", "--local-M", str(M_MAIN // 2),
+                "--ckpt-dir", os.path.join(work, "run6"), timeout=900)
+        sub = cli_launches(r.stdout, "[elastic] launches ") if r.returncode == 0 else {}
+        check(r.returncode == 0 and "bit-exact vs uninterrupted run" in r.stdout
+              and sub.get("gather_rows", 0) > 0 and sub.get("stencil_step_fused", 0) > 0,
+              f"elastic CLI: exit {r.returncode}\n{r.stdout}\n{r.stderr[-3000:]}")
+        log(f"slice 6, elastic CLI 2x2x2 (local {M_MAIN // 2}) -> 1x1x1: "
+            + "; ".join(ln for ln in r.stdout.splitlines() if ln.startswith("[elastic]")))
+        shutil.rmtree(os.path.join(work, "run6"), ignore_errors=True)
+
+        # Where a checkpoint's time goes, on the host's clock (each part alone,
+        # median of 3): the checkpointed run against the plain run in turns
+        # (plain, checkpointed, checkpointed, plain), then each part of one
+        # checkpoint and of one restore of this state.
+        cube0 = torch.from_numpy(state0).to(dev)
+
+        def wall(fn):
+            sync()
+            t_ = time.perf_counter()
+            fn()
+            sync()
+            return 1e3 * (time.perf_counter() - t_)
+
+        def ckpt_run():
+            d_ = tempfile.mkdtemp(dir=work)
+            try:
+                CheckpointedRun(ck_pipe, d_, interval=IV).run(state0, K_C)
+            finally:
+                shutil.rmtree(d_)
+
+        plain_run = lambda: ck_pipe.run(cube0, K_C)  # noqa: E731
+        plain_run()
+        walls = {"plain": [], "checkpointed": []}
+        for name in ("plain", "checkpointed", "checkpointed", "plain"):
+            walls[name].append(wall(plain_run if name == "plain" else ckpt_run))
+        w_plain = statistics.mean(walls["plain"])
+        w_ckpt = statistics.mean(walls["checkpointed"])
+        n_ckpt = K_C // IV + 1  # step 0 too
+        per_ckpt = (w_ckpt - w_plain) / n_ckpt
+        step_ms = w_plain / K_C
+
+        def part(fn, n=3):
+            return statistics.median(wall(fn) for _ in range(n))
+
+        st_dev = ck_pipe.to_blocks(cube0)
+        host = {}
+        t_unblock = part(lambda: host.update(cube=ck_pipe.to_cube(st_dev)))
+        t_d2h = part(lambda: host.update(arr=host["cube"].cpu().numpy()))
+        arr = np.ascontiguousarray(host["arr"])
+        t_crc = [part(lambda: CK.crc32(arr)) for _ in range(2)]
+        t_guard = part(lambda: health_check("gol", arr, [0.0, 1.0]))
+        npz = os.path.join(work, "part.npz")
+
+        def write_npz():
+            with open(npz, "wb") as f:
+                np.savez(f, state=arr)
+                f.flush()
+                host["fd"] = os.dup(f.fileno())
+
+        def fsync():
+            os.fsync(host["fd"])
+            os.close(host["fd"])
+
+        t_write, t_fsync = [], []
+        for _ in range(3):
+            t_write.append(wall(write_npz))
+            t_fsync.append(wall(fsync))
+        t_write, t_fsync = statistics.median(t_write), statistics.median(t_fsync)
+        d_s = os.path.join(work, "save")
+        t_save = part(lambda: CK.save(d_s, 1, {"state": arr}, meta={"step": 1}))
+        t_read = part(lambda: host.update(back=np.load(npz)["state"]))
+        t_verify = part(lambda: CK.crc32(host["back"]))
+        t_blockize = part(lambda: ck_pipe.to_blocks(torch.from_numpy(host["back"]).to(dev)))
+        t_restore = part(lambda: CK.restore(d_s))
+        parts = (t_unblock + t_d2h + sum(t_crc) + t_guard + t_write + t_fsync)
+        model = checkpoint_traffic_fraction(M_MAIN, T_MAIN, G_MAIN, IV, S=S_MAIN)
+        share = per_ckpt / (per_ckpt + IV * step_ms)
+        log(f"checkpointed main path: {w_ckpt / K_C:.4f} ms per timestep with a "
+            f"checkpoint every {IV} (readings "
+            f"{', '.join(f'{t:.1f}' for t in walls['checkpointed'])} ms per run), "
+            f"plain run_resident {step_ms:.4f} (readings "
+            f"{', '.join(f'{t:.1f}' for t in walls['plain'])} ms per run); "
+            f"{n_ckpt} checkpoints of {arr.nbytes / 2 ** 20:.0f} MiB, "
+            f"{per_ckpt:.1f} ms each")
+        log(f"one checkpoint, each part alone: unblockize on the device "
+            f"{t_unblock:.2f} ms, device->host copy {t_d2h:.2f} ms, crc32 "
+            f"{t_crc[0]:.2f} + {t_crc[1]:.2f} ms, health guard {t_guard:.2f} ms, "
+            f"npz write {t_write:.2f} ms, fsync {t_fsync:.2f} ms (sum "
+            f"{parts:.1f} ms; ckpt.save whole {t_save:.1f} ms)")
+        log(f"one restore, each part alone: npz read (page cache) {t_read:.2f} "
+            f"ms, crc verify {t_verify:.2f} ms, host->device and blockize "
+            f"{t_blockize:.2f} ms (ckpt.restore whole {t_restore:.1f} ms)")
+        log(f"measured checkpoint share of an interval's wall {100 * share:.2f}% "
+            f"(of the whole checkpointed run {100 * (1 - w_plain / w_ckpt):.2f}%) "
+            f"beside the byte model's checkpoint_traffic_fraction({M_MAIN}, "
+            f"{T_MAIN}, {G_MAIN}, {IV}, S={S_MAIN}) = {model:.4f}; the "
+            f"checkpoint would be half the wall at an interval of "
+            f"{per_ckpt / step_ms:.0f} steps")
+        slice_row = dict(ckpt_ms_per_step=w_ckpt / K_C, plain_ms_per_step=step_ms,
+                         ckpt_ms=per_ckpt, unblockize_ms=t_unblock, d2h_ms=t_d2h,
+                         crc32_ms=t_crc, guard_ms=t_guard, npz_write_ms=t_write,
+                         fsync_ms=t_fsync, save_ms=t_save, restore_read_ms=t_read,
+                         restore_crc_ms=t_verify, restore_blockize_ms=t_blockize,
+                         restore_ms=t_restore, measured_share=share,
+                         model_share=model, half_wall_interval=per_ckpt / step_ms)
+        del st_dev, host, arr, cube0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    sync()
+    log(f"slice: checkpointed and elastic runs ({time.perf_counter() - t1:.1f} s)")
 
     # smollm-360m at full width: prefill with the flash kernel in every
     # layer, then greedy decode (which runs no kernel: masked_sdpa over the
@@ -1188,6 +1589,50 @@ def main() -> int:
             f"{cuda_ms(plain, inner=100):.5f}, index_select "
             f"{cuda_ms(lib, inner=100):.5f})")
     kernels.append(row)  # the i face, the larger of the two
+
+    # fault F2's fp8 instances at the main path's shape (M=256, T=8, g=1;
+    # the fused step S=4, gol): each beside its plain version and its bound
+    # (one byte per stored element; f32 out for the tap sums), and conv3d
+    # in f16 on the same values as a yardstick (no PyTorch call computes
+    # on fp8 stores, so library_ms stays the f32 row's)
+    by_name = {k["name"]: k for k in kernels}
+    for dtype, tag in zip(FP8, ("e4m3", "e5m2")):
+        st8 = ref.round_to(store, dtype)
+        out8 = torch.empty_like(st8)
+        acc8 = torch.empty(store.shape, device=dev)
+        halo8 = ref.round_to(halo_main, dtype)
+        rows = {
+            "stencil_step_fused": (
+                lambda: K.stencil_step_fused(st8, w1, nbr_h, g=G_MAIN, S=S_MAIN,
+                                             out=out8),
+                lambda: ref.stencil_fused_ref(st8, w1, nbr_h, S=S_MAIN),
+                bound(2 * nb * T3 + 4 * (nb * 27 + nb * 6 + TAPS),
+                      S_MAIN * nb * T3 * 2 * TAPS)),
+            "stencil_sum_resident": (
+                lambda: K.stencil_sum_resident(st8, w1, nbr_h, g=G_MAIN, out=acc8),
+                lambda: ref.stencil_sum_resident_ref(st8, w1, nbr_h),
+                bound(nb * T3 + 4 * nb * T3 + 4 * (nb * 27 + TAPS),
+                      nb * T3 * 2 * TAPS)),
+            "stencil_sum_blocks": (
+                lambda: K.stencil_sum_blocks(halo8, w1, g=G_MAIN, out=acc8),
+                lambda: ref.stencil_sum_ref(halo8, w1),
+                bound(halo8.numel() + 4 * nb * T3 + 4 * TAPS, nb * T3 * 2 * TAPS)),
+        }
+        conv16 = cuda_ms(lambda: F.conv3d(halo8.to(torch.float16)[:, None],
+                                          w1.to(torch.float16)[None, None]))
+        for name, (fn, plain, (b_ms, b_by)) in rows.items():
+            check(same_bits(fn(), plain()), f"{name} {dtype} != plain at M={M_MAIN}")
+            k_ms, p_ms = cuda_ms(fn, reps=3, inner=5), cuda_ms(plain, reps=3, inner=1)
+            by_name[name].update({f"{tag}_ms": k_ms, f"{tag}_plain_ms": p_ms,
+                                  f"{tag}_bound_ms": b_ms,
+                                  f"{tag}_f16_conv3d_ms": conv16})
+            log(f"{name} {dtype} M={M_MAIN} T={T_MAIN} (first design): "
+                f"{k_ms:.4f} ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms by "
+                f"{b_by} ({100 * b_ms / k_ms:.1f}% of it); conv3d in f16 on the "
+                f"same blocks {conv16:.4f} ms")
+        del st8, out8, acc8, halo8
+    # the checkpointed main path's readings (the slice's phase above)
+    by_name["stencil_step_fused"]["checkpointed_main_path"] = slice_row
     for k in kernels:
         check(k["max_abs_err"] == 0.0, f"{k['name']} differs from plain: {k}")
         k.update(route="cuda", source=SOURCES[k["name"]],
@@ -1300,6 +1745,47 @@ def main() -> int:
         f"bound), max |d| to plain {g_err:.3g}; plain {g_plain_ms:.3f} ms; SDPA "
         f"{g_sdpa:.4f} ms; bound {g_bound:.4f} ms by {g_by} ({g_ops / 1e9:.2f} GFLOP)")
     del gq, gk, gv
+    # F3 and F1's new instances of the simple design, causal, 128-blocks,
+    # Morton: f16 and fp8 at BH=60, S=2048, D=64 (the bound at 989 TFLOP/s
+    # for f16, 1979 for fp8; SDPA in f16 beside the f16 one, none for fp8,
+    # which no PyTorch call takes), and D ∈ {320, 512, 1024} at BH=16,
+    # S=2048 in bf16 and f32 beside SDPA in the same dtype. Bytes: q, k, v
+    # read and o written once.
+    frow = next(k for k in kernels if k["name"] == "flash_attention_fwd")
+    new_cases = [((60, 2048, 64), dt, None if dt in FP8 else dt)
+                 for dt in (torch.float16,) + FP8]
+    new_cases += [((16, 2048, D), dt, dt) for D in (320, 512, 1024)
+                  for dt in (torch.bfloat16, torch.float32)]
+    peak = {torch.float16: F16_FLOP_PER_S, torch.bfloat16: BF16_FLOP_PER_S,
+            torch.float32: F32_FLOP_PER_S, FP8[0]: FP8_FLOP_PER_S,
+            FP8[1]: FP8_FLOP_PER_S}
+    for (nbh, ns, nd), dt, lib_dt in new_cases:
+        xq, xk, xv = (randn(nbh, ns, nd, dtype=dt) for _ in range(3))
+        x_fn = lambda: flash_attention_fwd(xq, xk, xv, causal=True,
+                                           block_q=FLASH_BLOCK,
+                                           block_k=FLASH_BLOCK, schedule="morton")
+        x_plain = lambda: ref.flash_attention_ref(xq, xk, xv)
+        x_err = flash_err(x_fn(), x_plain(), f"{(nbh, ns, nd)} {dt} timed")
+        x_ms = cuda_ms(x_fn, reps=3, inner=3)
+        x_plain_ms = cuda_ms(x_plain, reps=3, inner=1)
+        x_lib = None if lib_dt is None else cuda_ms(
+            lambda: F.scaled_dot_product_attention(xq[None], xk[None], xv[None],
+                                                   is_causal=True),
+            reps=3, inner=3)
+        x_ops = 4 * nd * nbh * ns * (ns + 1) // 2
+        x_bound, x_by = bound(4 * xq.numel() * xq.element_size(), x_ops, peak[dt])
+        tag = f"{str(dt).split('.')[1]}_d{nd}"
+        frow.update({f"{tag}_ms": x_ms, f"{tag}_plain_ms": x_plain_ms,
+                     f"{tag}_bound_ms": x_bound, f"{tag}_library_ms": x_lib,
+                     f"{tag}_max_abs_err": x_err})
+        log(f"flash_attention_fwd {(nbh, ns, nd)} {dt} causal morton, simple "
+            f"design: {x_ms:.4f} ms ({x_ops / x_ms / 1e9:.1f} TFLOP/s, "
+            f"{100 * x_bound / x_ms:.2f}% of the bound), max |d| to plain "
+            f"{x_err:.3g}; plain {x_plain_ms:.3f} ms; SDPA "
+            + ("none (no PyTorch call takes fp8)" if x_lib is None
+               else f"in {lib_dt} {x_lib:.4f} ms")
+            + f"; bound {x_bound:.4f} ms by {x_by} ({x_ops / 1e9:.2f} GFLOP)")
+        del xq, xk, xv
 
     # the repack path Gol3d.run at CHIP_REPACK: ms per timestep end to end
     # (host clock, median of 5 after a warm-up) and the repack kernel's

@@ -45,8 +45,11 @@ __all__ = ["BLOCKS_DESIGN_LAUNCHES", "FLASH_DESIGN_LAUNCHES", "LAUNCHES",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+# flash_attention_fwd's simple design is one source per element type
+# (csrc/flash_attn.cuh), so that its 35 instances build in parallel.
 SOURCES = ("stencil3d", "stencil3d_sm90", "stencil3d_blocks_sm90", "sfc_gather",
-           "flash_attn", "flash_attn_sm90")
+           "flash_attn_f32", "flash_attn_bf16", "flash_attn_f16",
+           "flash_attn_e4m3", "flash_attn_e5m2", "flash_attn_sm90")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-prec-div=true", "-prec-sqrt=true", "-ftz=false",

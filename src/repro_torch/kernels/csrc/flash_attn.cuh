@@ -1,5 +1,8 @@
 // Flash attention forward for Hopper (sm_90a), on a space-filling-curve
-// schedule of the (q-block x kv-block) grid.
+// schedule of the (q-block x kv-block) grid: the simple design, included by
+// one source per element type (flash_attn_{f32,bf16,f16,e4m3,e5m2}.cu), so
+// that nvcc builds the five libraries in parallel (kernels/_build.py) and
+// no one source compiles all 35 (element type, DP) instances.
 //
 // Replaces flash_attention_fwd (_flash_kernel) of
 // src/repro/kernels/flash_attn.py. On the TPU one sequential grid axis
@@ -16,29 +19,41 @@
 // The wrapper (kernels/flash_attn.py) turns the cell list into that plan,
 // [q_order (nq) | row_ptr (nq+1) | cols (ncells)], once per grid shape.
 //
-// Arithmetic, as the TPU kernel: scores q.k in f32 scaled by 1/sqrt(D)
-// after the product, keys past the causal diagonal (aligned to the end:
-// col <= row + Sk - Sq) masked to -inf, running max and sum per row, a row
-// with no key gives 0, the output rounded once to q's dtype. Products and
-// sums are explicit fmaf, so the build's -fmad=false costs nothing here.
+// Arithmetic, as the TPU kernel: q, k and v (f32, bf16, f16, fp8 e4m3fn or
+// e5m2) widened exactly to f32, scores q.k in f32 scaled by 1/sqrt(D) after
+// the product, keys past the causal diagonal (aligned to the end: col <=
+// row + Sk - Sq) masked to -inf, running max and sum per row, a row with no
+// key gives 0, the output rounded once to q's dtype (fp8 as XLA rounds:
+// fp8_round.cuh; the output is a convex combination of v's rows, so it
+// cannot overflow). Products and sums are explicit fmaf, so the build's
+// -fmad=false costs nothing here.
 //
 // Design (the simple first kernel): one thread per q row (blockDim = the q
 // block, 1..128 rows), its q row and f32 accumulator in registers; each
 // kv tile of K and V is staged in shared memory as f32 (2 * bk * DP * 4
 // bytes, 64 KiB at bk = 128, D = 64), and every thread reads it by
 // broadcast, 16 bytes at a time. Keys are scored 16 at a time before one
-// online-softmax update. D is padded to DP (16, 32, 64, 128 or 256) with
-// zeros. Any bk in [1, 128] runs (the reference runs every block that
-// divides the sequence): where bk is not a multiple of 16, the last
-// chunk's keys past the tile read its last row, with their scores masked
-// to -inf.
-// Head dims above 128 (DP = 256, gemma3-1b's D): two threads per q row,
-// each owning half the head dim, so each keeps 128 + 128 floats as the
-// DP = 128 instance does; their partial dot products meet in one
-// __shfl_xor_sync (both threads then hold the same score, as a + b == b + a
-// in IEEE arithmetic). f32 K and V tiles of 128 keys at DP = 256 would take
-// 256 KiB, over the 227 KiB a thread block may use: the tile is staged 64
-// keys at a time, whatever bk is.
+// online-softmax update. D is padded to DP (16, 32, 64, 128, 256, 512 or
+// 1024) with zeros. Any bk in [1, 128] runs (the reference runs every
+// block that divides the sequence): where bk is not a multiple of 16, the
+// last chunk's keys past the tile read its last row, with their scores
+// masked to -inf.
+// Head dims above 128 (DP = 256, gemma3-1b's D; DP = 512 and 1024): NS =
+// DP/128 threads per q row, each owning 128 columns of the head dim, so
+// each keeps 128 + 128 floats as the DP = 128 instance does. A thread
+// block has at most 256 threads above DP = 256 (max_rows), so that each
+// may keep 255 registers (a 128-row block of 1024 threads would cap them
+// at 64 and spill those floats): a q block of more rows (64 at DP = 512,
+// 32 at 1024) runs as several thread blocks, each staging the same K/V
+// tiles. The partial dot products meet in log2(NS) __shfl_xor_sync steps
+// of a butterfly, after which every lane of the row holds the same score
+// (each step adds the same two values in either order, and a + b == b + a
+// in IEEE arithmetic). f32 K and V tiles of 128
+// keys at DP = 256 would take 256 KiB, over the 227 KiB a thread block may
+// use: the tile is staged 64 keys at a time at DP = 256, 32 at 512 and 16
+// at 1024 (128 KiB of tiles at most), whatever bk is. Each part of a tile
+// row starts 16 bytes after the one before it, so that the parts' 16-byte
+// reads of one key fall on different banks.
 //
 // What bounds it on an H100: at the prefill's shape (BH = 60, S = 2048,
 // D = 64, causal, bf16) the function needs 4 * D * BH * S(S+1)/2 = 3.2e10
@@ -48,24 +63,37 @@
 // four FMAs, so it cannot come within 15x of that bound; wgmma on the
 // tensor cores, TMA and warp specialisation are the redesign's work.
 
+#pragma once
+
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "fp8_round.cuh"
 
 namespace {
 
 constexpr int KC = 16;           // keys scored per online-softmax update
 constexpr int MAX_ROWS = 128;    // largest q block
-constexpr int MAX_DP = 256;      // widest padded head dim
+constexpr int MAX_DP = 1024;     // widest padded head dim
 
 // Threads per q row, and keys staged in shared memory at a time, at DP.
-__host__ __device__ constexpr int threads_per_row(int dp) { return dp > 128 ? 2 : 1; }
-__host__ __device__ constexpr int staged_keys(int dp) { return dp > 128 ? 64 : 128; }
-// Floats a tile row takes in shared memory: with two threads a row, the
-// second half of each row starts 16 bytes late, so that the two halves'
-// 16-byte reads of a warp fall on different banks.
-__host__ __device__ constexpr int row_pitch(int dp) { return dp > 128 ? dp + 4 : dp; }
+__host__ __device__ constexpr int threads_per_row(int dp) { return dp > 128 ? dp / 128 : 1; }
+__host__ __device__ constexpr int staged_keys(int dp) { return dp > 128 ? 16384 / dp : 128; }
+// Floats a tile row takes in shared memory: with NS threads a row, each
+// part of the row starts 16 bytes after the one before it.
+__host__ __device__ constexpr int row_pitch(int dp) {
+  return dp + 4 * (threads_per_row(dp) - 1);
+}
+// q rows one thread block takes: a whole q block up to DP = 256; above, at
+// most 256 threads (64 rows at DP = 512, 32 at 1024), so that each thread
+// may keep up to 255 registers for its 128 + 128 floats, and a q block of
+// more rows runs as several thread blocks.
+__host__ __device__ constexpr int max_rows(int dp) {
+  return dp <= 256 ? MAX_ROWS : 256 / threads_per_row(dp);
+}
 
 __device__ __forceinline__ void load8(const float* p, float* dst) {
   const float4 a = *reinterpret_cast<const float4*>(p);
@@ -85,13 +113,47 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* dst) {
   }
 }
 
+__device__ __forceinline__ void load8(const __half* p, float* dst) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __half2* h = reinterpret_cast<const __half2*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(h[i]);
+    dst[2 * i] = f.x;
+    dst[2 * i + 1] = f.y;
+  }
+}
+
+// eight fp8 values (8 bytes), each widened exactly through f16
+template <__nv_fp8_interpretation_t KIND>
+__device__ __forceinline__ void load8_fp8(const void* p, float* dst) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const __nv_fp8_storage_t* b = reinterpret_cast<const __nv_fp8_storage_t*>(&u);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    dst[i] = __half2float(__half(__nv_cvt_fp8_to_halfraw(b[i], KIND)));
+}
+__device__ __forceinline__ void load8(const __nv_fp8_e4m3* p, float* dst) {
+  load8_fp8<__NV_E4M3>(p, dst);
+}
+__device__ __forceinline__ void load8(const __nv_fp8_e5m2* p, float* dst) {
+  load8_fp8<__NV_E5M2>(p, dst);
+}
+
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
+__device__ __forceinline__ void store(__half* p, float x) { *p = __float2half_rn(x); }
+__device__ __forceinline__ void store(__nv_fp8_e4m3* p, float x) {
+  *reinterpret_cast<__nv_fp8_storage_t*>(p) = fp8_e4m3_as_xla(x);
+}
+__device__ __forceinline__ void store(__nv_fp8_e5m2* p, float x) {
+  *reinterpret_cast<__nv_fp8_storage_t*>(p) = fp8_e5m2_as_xla(x);
+}
 
 template <typename T, int DP>
-__global__ void __launch_bounds__(MAX_ROWS * threads_per_row(DP))
+__global__ void __launch_bounds__(max_rows(DP) * threads_per_row(DP))
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  const int* __restrict__ plan, int sq, int sk, int d, int bq,
@@ -108,12 +170,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int* row_ptr = plan + nq;
   const int* cols = plan + 2 * nq + 1;
 
-  const int iq = q_order[blockIdx.x];
-  const int r = threadIdx.x / NS;
+  // the q block of this thread block, and its rows: q block q_order[i] is
+  // run by `parts` consecutive thread blocks of max_rows(DP) rows each
+  const int parts = (bq + max_rows(DP) - 1) / max_rows(DP);
+  const int iq = q_order[blockIdx.x / parts];
+  const int r = (blockIdx.x % parts) * max_rows(DP) + threadIdx.x / NS;
+  const bool live = r < bq;  // the last part's rows past the q block idle
   const int c0 = (threadIdx.x % NS) * DH;  // this thread's first column
-  const int t0 = (threadIdx.x % NS) * (DH + RP - DP);  // and where it lies in a row
-  // the two lanes of a q row (NS = 2), for the dot products' exchange
-  const unsigned pair = 3u << ((threadIdx.x & 31) & ~1);
+  const int t0 = (threadIdx.x % NS) * (DH + 4);  // and where it lies in a row
+  // the NS lanes of a q row, for the dot products' exchange
+  const unsigned lanes = ((1u << NS) - 1) << ((threadIdx.x & 31) & ~(NS - 1));
   const int row = iq * bq + r;
   const int offs = sk - sq;
   const int64_t qbase = (static_cast<int64_t>(blockIdx.y) * sq + row) * d;
@@ -122,7 +188,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float qr[DH], acc[DH];
 #pragma unroll
   for (int c = 0; c < DH; c += 8) {
-    if (c0 + c < d) {
+    if (live && c0 + c < d) {
       load8(q + qbase + c0 + c, qr + c);
     } else {
 #pragma unroll
@@ -134,7 +200,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // the padded columns [d, DP) of the tiles stay zero
   for (int e = threadIdx.x; e < kt * (DP - d); e += blockDim.x) {
     const int j = e / (DP - d), c = d + e % (DP - d);
-    const int at = j * RP + c + (c >= DH ? RP - DP : 0);
+    const int at = j * RP + c + (c / DH) * 4;
     ks[at] = 0.f;
     vs[at] = 0.f;
   }
@@ -151,7 +217,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = threadIdx.x; e < n * vec_per_row; e += blockDim.x) {
         const int j = e / vec_per_row, c = (e - j * vec_per_row) * 8;
         const int64_t g = kvbase + static_cast<int64_t>(ik * bk + jb + j) * d + c;
-        const int at = j * RP + c + (c >= DH ? RP - DP : 0);
+        const int at = j * RP + c + (c / DH) * 4;
         float tmp[8];
         load8(k + g, tmp);
         reinterpret_cast<float4*>(ks + at)[0] = make_float4(tmp[0], tmp[1], tmp[2], tmp[3]);
@@ -162,7 +228,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       __syncthreads();
       // keys j <= lim of these n are visible to this row
-      const int lim = causal ? min(n - 1, row + offs - ik * bk - jb) : n - 1;
+      const int lim = !live ? -1
+                      : causal ? min(n - 1, row + offs - ik * bk - jb) : n - 1;
       for (int j0 = 0; j0 <= lim; j0 += KC) {
         float s[KC];
         float mc = -INFINITY;
@@ -178,7 +245,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
             dot = fmaf(qr[c + 2], kk.z, dot);
             dot = fmaf(qr[c + 3], kk.w, dot);
           }
-          if constexpr (NS == 2) dot += __shfl_xor_sync(pair, dot, 1);
+#pragma unroll
+          for (int o = 1; o < NS; o <<= 1) dot += __shfl_xor_sync(lanes, dot, o);
           s[jj] = (j0 + jj <= lim) ? dot * scale : -INFINITY;
           mc = fmaxf(mc, s[jj]);
         }
@@ -209,7 +277,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float inv = l > 0.f ? 1.f / l : 0.f;
 #pragma unroll
   for (int c = 0; c < DH; ++c) {
-    if (c0 + c < d) store(o + qbase + c0 + c, acc[c] * inv);
+    if (live && c0 + c < d) store(o + qbase + c0 + c, acc[c] * inv);
   }
 }
 
@@ -223,7 +291,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kern<<<dim3(sq / bq, bh), bq * threads_per_row(DP), smem, stream>>>(
+  const int rows = bq < max_rows(DP) ? bq : max_rows(DP);
+  const int parts = (bq + rows - 1) / rows;
+  kern<<<dim3(sq / bq * parts, bh), rows * threads_per_row(DP), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), plan, sq, sk, d, bq, bk,
       causal, scale);
@@ -238,36 +308,26 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
   if (d <= 32) return launch<T, 32>(q, k, v, o, plan, bh, sq, sk, d, bq, bk, causal, scale, st);
   if (d <= 64) return launch<T, 64>(q, k, v, o, plan, bh, sq, sk, d, bq, bk, causal, scale, st);
   if (d <= 128) return launch<T, 128>(q, k, v, o, plan, bh, sq, sk, d, bq, bk, causal, scale, st);
-  return launch<T, 256>(q, k, v, o, plan, bh, sq, sk, d, bq, bk, causal, scale, st);
+  if (d <= 256) return launch<T, 256>(q, k, v, o, plan, bh, sq, sk, d, bq, bk, causal, scale, st);
+  if (d <= 512) return launch<T, 512>(q, k, v, o, plan, bh, sq, sk, d, bq, bk, causal, scale, st);
+  return launch<T, 1024>(q, k, v, o, plan, bh, sq, sk, d, bq, bk, causal, scale, st);
 }
 
-}  // namespace
-
-extern "C" {
-
-// q (bh, sq, d), k and v (bh, sk, d), o (bh, sq, d), contiguous, all of
-// one dtype (0: f32, 1: bf16), 16-byte aligned. d a multiple of 8 up to
-// 256; bq and bk in [1, 128] dividing sq and sk. plan int32
-// [q_order (sq/bq) | row_ptr (sq/bq + 1) | cols]. The wrapper checks all
-// of this; the kernel trusts it.
-int repro_flash_attention_fwd(const void* q, const void* k, const void* v,
-                              void* o, const void* plan, int bh, int sq,
-                              int sk, int d, int bq, int bk, int causal,
-                              float scale, int dtype, void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
-  auto pl = static_cast<const int*>(plan);
+// The C entry point of one element type's library: q (bh, sq, d), k and v
+// (bh, sk, d), o (bh, sq, d), contiguous, all of type T, 16-byte aligned; d
+// a multiple of 8 up to 1024; bq and bk in [1, 128] dividing sq and sk;
+// plan int32 [q_order (sq/bq) | row_ptr (sq/bq + 1) | cols]. The wrapper
+// checks all of this; the kernel trusts it.
+template <typename T>
+int flash_entry(const void* q, const void* k, const void* v, void* o,
+                const void* plan, int bh, int sq, int sk, int d, int bq, int bk,
+                int causal, float scale, void* stream) {
   if (d < 8 || d > MAX_DP || d % 8 || bq < 1 || bq > MAX_ROWS || bk < 1 ||
       bk > 128 || sq % bq || sk % bk)
     return static_cast<int>(cudaErrorInvalidValue);
-  switch (dtype) {
-    case 0: return launch_d<float>(q, k, v, o, pl, bh, sq, sk, d, bq, bk, causal, scale, st);
-    case 1: return launch_d<__nv_bfloat16>(q, k, v, o, pl, bh, sq, sk, d, bq, bk, causal, scale, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(launch_d<T>(q, k, v, o, static_cast<const int*>(plan),
+                                      bh, sq, sk, d, bq, bk, causal, scale,
+                                      static_cast<cudaStream_t>(stream)));
 }
 
-const char* repro_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
-}  // extern "C"
+}  // namespace

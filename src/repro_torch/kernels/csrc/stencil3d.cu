@@ -1,8 +1,8 @@
 // SFC-blocked 3-D weighted stencil kernels for Hopper (sm_90a).
 // (fused_kernel now serves the shapes and dtypes csrc/stencil3d_sm90.cu does
 // not take: T outside {8, 16}, g outside {1, 2}, three windows too large, or
-// a bf16 or f16 store; halo_sum_kernel the shapes and dtypes
-// csrc/stencil3d_blocks_sm90.cu does not take.)
+// a bf16, f16 or fp8 store; halo_sum_kernel the shapes and dtypes
+// csrc/stencil3d_blocks_sm90.cu does not take, fp8 blocks among them.)
 //
 // Three kernels, behind a plain C interface loaded with ctypes
 // (kernels/_build.py, kernels/stencil3d.py):
@@ -20,11 +20,14 @@
 //                           block (the repack baseline).
 //
 // Element types. Every kernel is templated on the store's element type
-// (float, __nv_bfloat16 or __half). Loads widen to f32 exactly, the window
-// in shared memory is f32, and every substep runs in f32; the one write
-// rounds to the store's type (the fused step) or is f32 (the two tap sums),
-// as the reference does (src/repro/kernels/stencil3d.py: _assemble_window
-// casts to f32, _fused_kernel writes in o_ref's dtype).
+// (float, __nv_bfloat16, __half, __nv_fp8_e4m3 or __nv_fp8_e5m2). Loads
+// widen to f32 exactly, the window in shared memory is f32, and every
+// substep runs in f32; the one write rounds to the store's type (the fused
+// step) or is f32 (the two tap sums), as the reference does
+// (src/repro/kernels/stencil3d.py: _assemble_window casts to f32,
+// _fused_kernel writes in o_ref's dtype). The fp8 writes round as XLA
+// converts (fp8_round.cuh, kernels/ref.round_to): e4m3fn gives NaN above
+// 464 in magnitude, where the library's saturating conversion gives 448.
 //
 // Numerics. Every product and sum uses the round-to-nearest intrinsics
 // (__fmul_rn, __fadd_rn, __fdiv_rn), which the compiler never contracts
@@ -67,6 +70,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fp8_round.cuh"
+
 namespace {
 
 constexpr int RULE_GOL = 0;
@@ -82,6 +87,8 @@ constexpr int BC_NEUMANN0 = 2;
 constexpr int DTYPE_F32 = 0;
 constexpr int DTYPE_BF16 = 1;
 constexpr int DTYPE_F16 = 2;
+constexpr int DTYPE_E4M3 = 3;
+constexpr int DTYPE_E5M2 = 4;
 
 constexpr int THREADS = 256;
 // Taps are unrolled with the weights in registers for g = 1 and g = 2
@@ -102,12 +109,20 @@ __host__ __device__ constexpr int channels_of(int rule) {
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float widen(__half x) { return __half2float(x); }
+__device__ __forceinline__ float widen(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
+__device__ __forceinline__ float widen(__nv_fp8_e5m2 x) { return static_cast<float>(x); }
 
 __device__ __forceinline__ void put(float* p, float x) { *p = x; }
 __device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 __device__ __forceinline__ void put(__half* p, float x) { *p = __float2half_rn(x); }
+__device__ __forceinline__ void put(__nv_fp8_e4m3* p, float x) {
+  *reinterpret_cast<__nv_fp8_storage_t*>(p) = fp8_e4m3_as_xla(x);
+}
+__device__ __forceinline__ void put(__nv_fp8_e5m2* p, float x) {
+  *reinterpret_cast<__nv_fp8_storage_t*>(p) = fp8_e5m2_as_xla(x);
+}
 
 // Weights of a compile-time radius held in registers; a runtime radius
 // reads them through the read-only cache.
@@ -426,10 +441,11 @@ cudaError_t dispatch_halo_sum(const void* blocks, float* out, const float* w,
 extern "C" {
 
 // S fused timesteps: store (C, nb_src, T,T,T) -> out (C, nb, T,T,T) in the
-// store's dtype (0: f32, 1: bf16, 2: f16; C = 2 for wave, else 1), whose
-// channels lie out_nb >= nb blocks apart (out_nb > nb: the core of a
-// larger, extended store); nbr int32 (nb, 27); bnd int32 (nb, 6) or null
-// when every axis is periodic; bc_* per axis k, i, j.
+// store's dtype (0: f32, 1: bf16, 2: f16, 3: fp8 e4m3fn, 4: fp8 e5m2;
+// C = 2 for wave, else 1), whose channels lie out_nb >= nb blocks apart
+// (out_nb > nb: the core of a larger, extended store); nbr int32 (nb, 27);
+// bnd int32 (nb, 6) or null when every axis is periodic; bc_* per axis k,
+// i, j.
 int repro_stencil_step_fused(const void* store, void* out, const void* w,
                              const void* nbr, const void* bnd, int nb,
                              int nb_src, int out_nb, int T, int g, int S,
@@ -451,6 +467,12 @@ int repro_stencil_step_fused(const void* store, void* out, const void* w,
     case DTYPE_F16:
       return dispatch_rule<__half>(rule, store, out, wp, nt, bt, nb, nb_src,
                                    out_nb, T, g, S, bc, st);
+    case DTYPE_E4M3:
+      return dispatch_rule<__nv_fp8_e4m3>(rule, store, out, wp, nt, bt, nb,
+                                          nb_src, out_nb, T, g, S, bc, st);
+    case DTYPE_E5M2:
+      return dispatch_rule<__nv_fp8_e5m2>(rule, store, out, wp, nt, bt, nb,
+                                          nb_src, out_nb, T, g, S, bc, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -476,6 +498,12 @@ int repro_stencil_sum_resident(const void* store, void* out, const void* w,
     case DTYPE_F16:
       return dispatch_g<__half, float, RULE_IDENTITY>(store, out, wp, nt, nullptr,
                                                       nb, nb, nb, T, g, 1, bc, st);
+    case DTYPE_E4M3:
+      return dispatch_g<__nv_fp8_e4m3, float, RULE_IDENTITY>(
+          store, out, wp, nt, nullptr, nb, nb, nb, T, g, 1, bc, st);
+    case DTYPE_E5M2:
+      return dispatch_g<__nv_fp8_e5m2, float, RULE_IDENTITY>(
+          store, out, wp, nt, nullptr, nb, nb, nb, T, g, 1, bc, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -492,6 +520,8 @@ int repro_stencil_sum_blocks(const void* blocks, void* out, const void* w,
     case DTYPE_F32: return dispatch_halo_sum<float>(blocks, o, wp, nb, T, g, st);
     case DTYPE_BF16: return dispatch_halo_sum<__nv_bfloat16>(blocks, o, wp, nb, T, g, st);
     case DTYPE_F16: return dispatch_halo_sum<__half>(blocks, o, wp, nb, T, g, st);
+    case DTYPE_E4M3: return dispatch_halo_sum<__nv_fp8_e4m3>(blocks, o, wp, nb, T, g, st);
+    case DTYPE_E5M2: return dispatch_halo_sum<__nv_fp8_e5m2>(blocks, o, wp, nb, T, g, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -7,9 +7,10 @@ with the same signature minus ``interpret``. Two hand-written CUDA
 designs compute it, and :func:`flash_design` (a pure function of dtype, D
 and the block sizes) picks one: ``csrc/flash_attn_sm90.cu`` (wgmma on the
 tensor cores, TMA-fed K/V ring, warp specialisation) for bf16 with D and
-both blocks in {64, 128}, ``csrc/flash_attn.cu`` (one thread per q row,
-two above a head dim of 128, f32 on the CUDA cores) for every other case,
-head dims up to 256 among them.
+both blocks in {64, 128}, the simple design ``csrc/flash_attn.cuh`` (one
+thread per q row, D/128 above a head dim of 128, f32 on the CUDA cores;
+one library per element type, ``csrc/flash_attn_<type>.cu``) for every
+other case: f32, f16 and fp8 q, k, v and head dims up to 1024 among them.
 
 The (q-block × kv-block) score grid is a 2D index space (DESIGN.md §5);
 on the TPU one sequential grid walks its cells in curve order. On the GPU
@@ -41,9 +42,14 @@ from . import _build, ref
 __all__ = ["SCHEDULES", "build_schedule", "flash_attention_fwd", "flash_design",
            "pad_head_dim", "schedule_plan"]
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The dtypes the kernels take, by the simple design's library of each
+# (csrc/flash_attn_<type>.cu).
+_DTYPES = {torch.float32: "flash_attn_f32", torch.bfloat16: "flash_attn_bf16",
+           torch.float16: "flash_attn_f16",
+           torch.float8_e4m3fn: "flash_attn_e4m3",
+           torch.float8_e5m2: "flash_attn_e5m2"}
 _MAX_BLOCK = 128
-_MAX_HEAD_DIM = 256  # the simple design's widest build (gemma3-1b's D)
+_MAX_HEAD_DIM = 1024  # the simple design's widest build
 _SM90_SIZES = (64, 128)  # D, block_q and block_k of the sm90 design
 SCHEDULES = ("row_major", "morton", "hilbert")
 
@@ -102,17 +108,16 @@ def flash_design(dtype: torch.dtype, d: int, block_q: int, block_k: int) -> str:
 
 
 @functools.cache
-def _lib(design: str) -> tuple[ctypes.CDLL, object]:
-    """The library of ``design`` and its C entry point."""
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+def _lib(design: str, dtype: torch.dtype) -> tuple[ctypes.CDLL, object]:
+    """The library of ``design`` for ``dtype`` and its C entry point."""
     if design == "sm90":
         lib = _build.library("flash_attn_sm90")
         fn = lib.repro_flash_attention_fwd_sm90
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, p]
     else:
-        lib = _build.library("flash_attn")
+        lib = _build.library(_DTYPES[dtype])
         fn = lib.repro_flash_attention_fwd
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, i, p]
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, p]
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -128,8 +133,9 @@ def _check(q, k, v, block_q: int, block_k: int, schedule: str) -> None:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ in "
                          "BH or D")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"q, k and v must all be float32 or bfloat16, got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+        raise TypeError(f"q, k and v must all be float32, bfloat16, float16, "
+                        f"float8_e4m3fn or float8_e5m2, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
     if q.device.type not in ("cpu", "cuda") or k.device != q.device \
             or v.device != q.device:
         raise ValueError(f"q, k and v must lie on one cuda or cpu device, got "
@@ -149,9 +155,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         block_k: int = 64, schedule: str = "morton") -> torch.Tensor:
     """Flash attention forward. q: (BH, Sq, D); k, v: (BH, Sk, D).
 
-    Heads are pre-folded into the batch axis (ops.py handles GQA). f32 or
-    bf16, arithmetic in f32, output in q's dtype; the causal diagonal is
-    aligned to the end and a row with no key gives 0. D is at most 256;
+    Heads are pre-folded into the batch axis (ops.py handles GQA). f32,
+    bf16, f16, float8_e4m3fn or float8_e5m2, arithmetic in f32, output in
+    q's dtype (rounded once, as kernels/ref.round_to rounds); the causal
+    diagonal is aligned to the end and a row with no key gives 0. D is at
+    most 1024;
     block_q and block_k are at most 128 and divide Sq and Sk (ops.py
     picks them, as the JAX package does). Anything else raises. The
     output does not depend on ``schedule`` beyond f32 rounding. On the
@@ -186,13 +194,11 @@ def _fwd_on_card(design: str, q, k, v, causal, block_q: int, block_k: int,
                else t.clone(memory_format=torch.contiguous_format)
                for t in (q, k, v))
     out = torch.empty_like(q)
-    lib, fn = _lib(design)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            plan.data_ptr(), BH, Sq, Sk, Dp, block_q, block_k, int(bool(causal)),
-            1.0 / math.sqrt(D))
-    if design == "simple":
-        args += (_DTYPES[q.dtype],)
-    _build.launch(lib, "flash_attention_fwd", fn, q.device, *args)
+    lib, fn = _lib(design, q.dtype)
+    _build.launch(lib, "flash_attention_fwd", fn, q.device, q.data_ptr(),
+                  k.data_ptr(), v.data_ptr(), out.data_ptr(), plan.data_ptr(),
+                  BH, Sq, Sk, Dp, block_q, block_k, int(bool(causal)),
+                  1.0 / math.sqrt(D))
     _build.FLASH_DESIGN_LAUNCHES[design] += 1
     return out if Dp == D else out[..., :D].contiguous()
 
@@ -205,4 +211,9 @@ def pad_head_dim(q, k, v):
     pad = -D % 8
     if not pad:
         return q, k, v
-    return tuple(torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
+    padded = []
+    for t in (q, k, v):  # zeros, then a copy: F.pad has no fp8 kernels
+        z = t.new_zeros(t.shape[:-1] + (D + pad,))
+        z[..., :D] = t
+        padded.append(z)
+    return tuple(padded)

@@ -18,10 +18,31 @@ from repro_torch.core.boundary import PERIODIC, as_boundary, pad_cube
 
 from .rules import apply_window_bc, get_rule
 
-__all__ = ["stencil_sum_ref", "gol_rule_ref", "gol3d_step_ref",
+__all__ = ["round_to", "stencil_sum_ref", "gol_rule_ref", "gol3d_step_ref",
            "assemble_halo_ref", "stencil_sum_resident_ref",
            "stencil_fused_ref", "fields_step_ref", "gather_rows_ref",
            "attention_ref", "flash_attention_ref"]
+
+# float8_e4m3fn has no infinity and 448 is its largest finite value; XLA
+# rounds to nearest even below the midpoint to the next step (480, which
+# the format lacks) and gives NaN above it.
+_E4M3_LIMIT = 464.0
+
+
+def round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` rounded once to ``dtype`` as XLA converts: to nearest even.
+
+    ``Tensor.to(float8_e4m3fn)`` saturates at 448 where XLA gives NaN
+    (every |x| > 464, and ±inf), keeping the sign; this gives NaN there.
+    Every other dtype is ``x.to(dtype)``, XLA's values (a NaN's payload
+    is not: even the JAX package writes e5m2 NaN as 0x7E from ``astype``
+    and 0x7F from its kernels). The CUDA kernels' stores round the same
+    (csrc/fp8_round.cuh).
+    """
+    if dtype == torch.float8_e4m3fn:
+        nan = torch.copysign(torch.full((), float("nan"), device=x.device), x)
+        return torch.where(~(x.abs() <= _E4M3_LIMIT), nan, x).to(dtype)
+    return x.to(dtype)
 
 
 def stencil_sum_ref(blocks: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -115,7 +136,7 @@ def stencil_fused_ref(store: torch.Tensor, weights: torch.Tensor,
             tap = stencil_sum_ref(x, weights)
             centre = x[:, g:-g, g:-g, g:-g]
         x = r.apply(centre, tap, g)
-    return x.to(store.dtype)
+    return round_to(x, store.dtype)
 
 
 def fields_step_ref(fields: torch.Tensor, weights: torch.Tensor, g: int,
@@ -144,13 +165,13 @@ def fields_step_ref(fields: torch.Tensor, weights: torch.Tensor, g: int,
             for dj in range(s):
                 tap = tap + w[dk, di, dj] * (
                     xp[:, dk:dk + M, di:di + M, dj:dj + M].to(torch.float32))
-    out = r.apply(fields.to(torch.float32), tap, g).to(fields.dtype)
+    out = round_to(r.apply(fields.to(torch.float32), tap, g), fields.dtype)
     return out[0] if squeeze else out
 
 
 def gol_rule_ref(state: torch.Tensor, neigh_sum: torch.Tensor, g: int) -> torch.Tensor:
     """Generalised Game-of-Life rule (rules.gol_thresholds)."""
-    return get_rule("gol").apply(state, neigh_sum, g).to(state.dtype)
+    return round_to(get_rule("gol").apply(state, neigh_sum, g), state.dtype)
 
 
 def gol3d_step_ref(cube: torch.Tensor, g: int, bc=PERIODIC) -> torch.Tensor:
@@ -189,7 +210,7 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask = _causal_mask(q.shape[1], k.shape[1], q.device)
         s = s.masked_fill(~mask, float("-inf"))
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+    return round_to(torch.einsum("bqk,bkd->bqd", p, v.float()), q.dtype)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -199,7 +220,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel does, the causal diagonal aligned to the end. A row with no
     key gives 0, as the kernel does (``attention_ref`` gives NaN).
 
-    q: (BH, Sq, D); k, v: (BH, Sk, D); f32 or bf16 -> q's dtype.
+    q: (BH, Sq, D); k, v: (BH, Sk, D); any dtype the kernel takes -> q's
+    dtype, rounded once by :func:`round_to`.
     """
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * (1.0 / math.sqrt(q.shape[-1]))
     if causal:
@@ -209,4 +231,4 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         p = torch.softmax(s, dim=-1).masked_fill(empty, 0.0)
     else:
         p = torch.softmax(s, dim=-1)
-    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+    return round_to(torch.einsum("bqk,bkd->bqd", p, v.float()), q.dtype)

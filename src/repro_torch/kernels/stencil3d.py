@@ -27,9 +27,13 @@ a CPU tensor runs the plain version in kernels/ref.py. Each launch adds
 one to ``LAUNCHES[name]`` (the port's one counter, kernels/_build.py), the
 fused and resident launches one to ``STENCIL_DESIGN_LAUNCHES[design]`` and
 the repack launches one to ``BLOCKS_DESIGN_LAUNCHES[design]``.
-Stores and blocks are f32, bf16 or f16 (:data:`DTYPES`); every other
-dtype raises. The arithmetic is f32 in every dtype: the fused step writes
-in the store's dtype, the two tap sums in f32. Outputs are allocated here
+Stores and blocks are f32, bf16, f16, float8_e4m3fn or float8_e5m2
+(:data:`DTYPES`); every other dtype raises. The arithmetic is f32 in every
+dtype: the fused step writes in the store's dtype, rounded once as XLA
+rounds (kernels/ref.round_to: an fp8 e4m3fn result above 464 in magnitude
+is NaN), the two tap sums in f32. The Hopper designs take f32 (the fused
+step) and f32, bf16 and f16 (the repack sum): fp8 stores take the first
+design. Outputs are allocated here
 (or passed as ``out=``, which must not share memory with the input) and
 kernels run on the current stream without synchronising.
 """
@@ -61,7 +65,10 @@ _TABLE_SMEM_BYTES = 4 * (27 + 6)
 # What the Hopper design (csrc/stencil3d_sm90.cu) takes.
 _SM90_T, _SM90_G, _SM90_C = (8, 16), (1, 2), (1, 2)
 # The store dtypes every kernel takes, by the code its C entry point reads.
-DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+          torch.float8_e4m3fn: 3, torch.float8_e5m2: 4}
+# The block dtypes of the Hopper repack design (csrc/stencil3d_blocks_sm90.cu).
+_BLOCKS_SM90_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 # csrc/stencil3d_blocks_sm90.cu: threads per thread block, and each
 # thread's column of sites along k (NZ) times along j (NX)
 _BLOCKS_NT, _BLOCKS_NZ, _BLOCKS_NX = 128, 4, 4
@@ -93,8 +100,8 @@ def fused_design(T: int, g: int, S: int, C: int,
     (``csrc/stencil3d_sm90.cu``) for f32 with T ∈ {8, 16}, g ∈ {1, 2},
     S·g | T and C ∈ {1, 2} where :func:`sm90_smem_bytes` fits in
     :data:`SMEM_LIMIT_BYTES`; ``"simple"`` (``csrc/stencil3d.cu``) for
-    every other case, bf16 and f16 stores among them. Nothing else, and
-    never a failure, decides it."""
+    every other case, bf16, f16 and fp8 stores among them. Nothing else,
+    and never a failure, decides it."""
     if dtype == torch.float32 and T in _SM90_T and g in _SM90_G \
             and C in _SM90_C and S >= 1 and T % (S * g) == 0 \
             and sm90_smem_bytes(T, g, S, fields=C) <= SMEM_LIMIT_BYTES:
@@ -127,8 +134,9 @@ def blocks_design(T: int, g: int, dtype: torch.dtype = torch.float32) -> str:
     window is a multiple of 16 bytes (a bulk copy's unit) and
     :func:`blocks_sm90_smem_bytes` fits in :data:`SMEM_LIMIT_BYTES`;
     ``"simple"`` (``csrc/stencil3d.cu`` ``halo_sum_kernel``) for every
-    other case. Nothing else, and never a failure, decides it."""
-    if dtype not in DTYPES or T not in _SM90_T or g not in _SM90_G:
+    other case, fp8 blocks among them. Nothing else, and never a failure,
+    decides it."""
+    if dtype not in _BLOCKS_SM90_DTYPES or T not in _SM90_T or g not in _SM90_G:
         return "simple"
     item = torch.empty((), dtype=dtype).element_size()
     if (T + 2 * g) ** 3 * item % 16 == 0 \
@@ -194,8 +202,9 @@ def _check(t: torch.Tensor, name: str, shape: tuple, dtype: torch.dtype,
 
 def _check_store(store: torch.Tensor, name: str) -> None:
     if store.dtype not in DTYPES:
-        raise TypeError(f"{name} must be float32, bfloat16 or float16 (the "
-                        f"dtypes the kernels take), got {store.dtype}")
+        raise TypeError(f"{name} must be float32, bfloat16, float16, "
+                        f"float8_e4m3fn or float8_e5m2 (the dtypes the "
+                        f"kernels take), got {store.dtype}")
     if store.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} is on {store.device}; use cuda or cpu")
     if not store.is_contiguous():
@@ -277,7 +286,7 @@ def stencil_step_fused(store: torch.Tensor, weights: torch.Tensor,
     """S fused timesteps over the resident store, one device-memory
     round trip.
 
-    store:   (nb_src, T, T, T) f32, bf16 or f16, or the stacked
+    store:   (nb_src, T, T, T) in a dtype of :data:`DTYPES`, or the stacked
              (C, nb_src, T, T, T) store when the rule declares C > 1
              (DESIGN.md §9)
     weights: (2g+1, 2g+1, 2g+1) f32 tap weights
@@ -291,7 +300,8 @@ def stencil_step_fused(store: torch.Tensor, weights: torch.Tensor,
              sharing memory with ``store``: contiguous, or for a stacked
              store the core ``ext[:, :nb]`` of a larger contiguous store
     returns: the store's computed core after S timesteps, in the store's
-             dtype (every substep runs in f32; the result rounds once)
+             dtype (every substep runs in f32; the result rounds once, as
+             kernels/ref.round_to does)
     """
     r = get_rule(rule)
     if store.ndim not in (4, 5):
@@ -376,7 +386,7 @@ def stencil_sum_resident(store: torch.Tensor, weights: torch.Tensor,
                          out: torch.Tensor | None = None) -> torch.Tensor:
     """In-kernel halo streaming over the persistent block store.
 
-    store:   (nb, T, T, T) f32, bf16 or f16 — SFC-ordered, no halo
+    store:   (nb, T, T, T) in a dtype of :data:`DTYPES` — SFC-ordered, no halo
              duplication
     weights: (2g+1, 2g+1, 2g+1) f32
     nbr:     (nb, 27) int32 periodic neighbour table of the same ordering
@@ -430,7 +440,7 @@ def stencil_sum_blocks(blocks: torch.Tensor, weights: torch.Tensor, *,
                        g: int, out: torch.Tensor | None = None) -> torch.Tensor:
     """acc[b] = sum_d w[d] * blocks[b, z+d] for every block b.
 
-    blocks:  (nb, T+2g, T+2g, T+2g) f32, bf16 or f16 — SFC-ordered,
+    blocks:  (nb, T+2g, T+2g, T+2g) in a dtype of :data:`DTYPES` — SFC-ordered,
              halo-extended
     weights: (2g+1, 2g+1, 2g+1) f32
     returns: (nb, T, T, T) f32

@@ -55,6 +55,7 @@ __all__ = [
     "resident_unfused_items_per_step", "resident_unfused_bytes_per_step",
     "exchange_face_items", "exchange_items_per_exchange",
     "exchange_bytes_per_step", "distributed_bytes_per_step",
+    "checkpoint_bytes_per_interval", "checkpoint_traffic_fraction",
 ]
 
 
@@ -290,6 +291,35 @@ def resident_bytes_per_step(M: int, T: int, g: int, n_steps: int,
 def _boundary_items(M: int) -> int:
     # blockize + unblockize: read M³ + write M³ each, once per run
     return 4 * M ** 3
+
+
+def checkpoint_bytes_per_interval(M, *, fields: int = 1,
+                                  itemsize: int = 4) -> int:
+    """Bytes one checkpoint writes: the canonical (curve-independent)
+    C-channel state of an M³ cube — or a non-cubic (Gk,Gi,Gj) box —
+    once per interval (stencil/runner.CheckpointedRun, DESIGN.md §10).
+
+    The snapshot is the *logical* state, so its size is ordering-, T-,
+    S- and mesh-independent: exactly ``C · ∏(shape) · itemsize`` payload
+    bytes (the npz container and manifest add O(KiB), not modelled).
+    """
+    gk, gi, gj = (M, M, M) if isinstance(M, int) else M
+    return fields * gk * gi * gj * itemsize
+
+
+def checkpoint_traffic_fraction(M: int, T: int, g: int, interval: int, *,
+                                S: int = 1, fields: int = 1,
+                                itemsize: int = 4) -> float:
+    """Modelled fraction of per-interval data movement spent on the
+    checkpoint: snapshot bytes (plus the unblockize read that produces
+    the canonical state) over snapshot + the interval's fused stream of
+    device memory. A byte model only: it counts no host copy, hashing,
+    file write or fsync."""
+    snap = checkpoint_bytes_per_interval(M, fields=fields, itemsize=itemsize) \
+        + fields * M ** 3 * itemsize  # unblockize read of the store
+    compute = interval * fused_items_per_launch(M, T, g, S, fields=fields) \
+        / S * itemsize
+    return snap / (snap + compute)
 
 
 def exchange_face_items(M: int, g: int, S: int = 1) -> tuple[int, int, int]:

@@ -62,7 +62,14 @@ def _child_env() -> dict[str, str]:
 
 def reference_arrays(tmp_path_factory, recipe: str) -> dict[str, np.ndarray]:
     """Run ``recipe`` in a child process; return its arrays by name."""
-    out = tmp_path_factory.mktemp(f"ref_{recipe}") / "ref.npz"
+    return recipe_arrays(tmp_path_factory.mktemp(f"ref_{recipe}"), recipe)
+
+
+def recipe_arrays(work: Path, recipe: str) -> dict[str, np.ndarray]:
+    """Run ``recipe`` in a child process with ``work`` as its directory
+    (the checkpoint recipes read and write checkpoint dirs there); return
+    its arrays by name."""
+    out = Path(work) / "ref.npz"
     proc = subprocess.run([sys.executable, __file__, recipe, str(out)],
                           env=_child_env(), capture_output=True, text=True,
                           timeout=600)
@@ -97,6 +104,67 @@ def random_store(rule: str, nb: int, T: int, seed: int) -> np.ndarray:
         return (rng.random((nb, T, T, T)) < 0.3).astype(np.float32)
     shape = (2, nb, T, T, T) if rule == "wave" else (nb, T, T, T)
     return rng.normal(size=shape).astype(np.float32)
+
+
+FP8 = ("float8_e4m3fn", "float8_e5m2")
+
+
+def fp8_values(shape, seed: int, *, lo: float = 440.0, hi: float = 500.0,
+               base=None) -> np.ndarray:
+    """f32 values for an fp8 store: ``base`` (default normals) with a fifth
+    of the sites drawn from [lo, hi] with either sign, where e4m3fn's 448
+    and its NaN above 464 lie, and one site in fifty NaN."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=shape).astype(np.float32) if base is None \
+        else np.array(base, dtype=np.float32)
+    big = rng.random(shape) < 0.2
+    x[big] = (rng.uniform(lo, hi, size=int(big.sum()))
+              * rng.choice([-1.0, 1.0], size=int(big.sum())))
+    x[rng.random(shape) < 0.02] = np.nan
+    return x
+
+
+def fp8_pair(x: np.ndarray, dtype: str):
+    """``x`` converted to the fp8 ``dtype`` by the JAX package's XLA, and
+    the same bits as a torch tensor: ``(jax_array, torch_tensor)``."""
+    import jax.numpy as jnp
+    import torch
+
+    js = jnp.asarray(x).astype(getattr(jnp, dtype))
+    ts = torch.from_numpy(np.asarray(js).view(np.uint8).copy()).view(
+        getattr(torch, dtype))
+    return js, ts
+
+
+def bits(a) -> np.ndarray:
+    """The bit patterns of a torch tensor or a JAX/numpy array, as
+    unsigned integers of its width: equal bits, NaN included."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu()
+        width = a.element_size()
+        return a.contiguous().view(
+            {1: torch.uint8, 2: torch.int16, 4: torch.int32}[width]).numpy() \
+            .view({1: np.uint8, 2: np.uint16, 4: np.uint32}[width])
+    a = np.asarray(a)
+    return a.view({1: np.uint8, 2: np.uint16, 4: np.uint32}[a.dtype.itemsize])
+
+
+def same_bits(got, want) -> bool:
+    """Bit-equal wherever ``want`` is a number, and NaN exactly where it
+    is NaN. A NaN's sign and payload are left out: they follow the
+    machine's arithmetic (x86 and the card differ) and the JAX package
+    itself writes e5m2 NaN as 0x7E or 0x7F by path."""
+    import torch
+
+    g = got.detach().cpu().float().numpy() if isinstance(got, torch.Tensor) \
+        else np.asarray(got).astype(np.float32)
+    w = want.detach().cpu().float().numpy() if isinstance(want, torch.Tensor) \
+        else np.asarray(want).astype(np.float32)
+    nan = np.isnan(w)
+    return g.shape == w.shape and bool((np.isnan(g) == nan).all()) \
+        and bool((bits(got)[~nan] == bits(want)[~nan]).all())
 
 
 def tables(kind: str, nt: int, bc: str):
@@ -482,6 +550,23 @@ BLOCK_CASES = (tuple((S, 3, 1, 64) for S in (8, 12, 24, 100))
                + ((24, 2, 1, 12), (24, 2, 1, 160), (48, 2, 1, 256)))
 
 
+# q, k, v in the narrow dtypes the JAX kernel takes (F3): (BH, S, D),
+# 16-blocks, and the head dims above 256 (F1): (BH, S, D) per D, f32 and
+# bf16, 16-blocks
+FLASH_NARROW_SHAPE, FLASH_NARROW_DTYPES = (2, 64, 32), ("float16",) + FP8
+FLASH_WIDE_SHAPES = ((1, 32, 320), (1, 32, 512), (1, 32, 1024))
+
+
+def narrow_flash_inputs(dtype: str, seed: int):
+    """q, k, v converted to ``dtype`` by XLA, as numpy arrays of their bits
+    (uint16 for f16, uint8 for fp8) for the torch side to view."""
+    import jax.numpy as jnp
+
+    BH, S, D = FLASH_NARROW_SHAPE
+    return tuple(np.asarray(jnp.asarray(a).astype(getattr(jnp, dtype)))
+                 for a in flash_inputs((BH, S, S, D), seed))
+
+
 def any_block_inputs(case) -> tuple[np.ndarray, ...]:
     """q (1, Hq, S, D) and k, v (1, Hkv, S, D), f32 normals."""
     S, hq, hkv, D = case
@@ -564,6 +649,22 @@ def _recipe_flash() -> dict[str, np.ndarray]:
         for causal in (True, False):
             res[f"any_block/{case}/{int(causal)}"] = np.asarray(
                 ops.flash_attention(q, k, v, causal, "morton", 128, 128))
+    for n, dtype in enumerate(FLASH_NARROW_DTYPES):
+        q, k, v = narrow_flash_inputs(dtype, 60 + n)
+        for causal in (True, False):
+            out = flash_attention_fwd(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v), causal=causal,
+                                      block_q=16, block_k=16,
+                                      schedule="hilbert", interpret=True)
+            res[f"narrow/{dtype}/{int(causal)}"] = np.asarray(out).view(
+                np.uint16 if dtype == "float16" else np.uint8)
+    for BH, S, D in FLASH_WIDE_SHAPES:
+        for dtype in ("float32", "bfloat16"):
+            q, k, v = (jnp.asarray(a).astype(getattr(jnp, dtype))
+                       for a in flash_inputs((BH, S, S, D), D))
+            res[f"wide/{D}/{dtype}"] = np.asarray(flash_attention_fwd(
+                q, k, v, causal=True, block_q=16, block_k=16,
+                schedule="morton", interpret=True)).astype(np.float32)
     return res
 
 
@@ -616,9 +717,100 @@ def _recipe_lm() -> dict[str, np.ndarray]:
     return res
 
 
+# ------------------------------------------- checkpoints across packages
+# The checkpoint recipes work in the directory of their output: they
+# write the JAX package's checkpoints there and read those the torch
+# package wrote there before the recipe ran.
+
+CKPT_STEP = 3
+
+
+def ckpt_tree() -> dict[str, np.ndarray]:
+    """The leaves of the cross-package checkpoint, as f32 values: an f32
+    state, a bf16 and an fp8 leaf (rounded by each package's own
+    conversion, so the values are chosen exact in both) and an int32
+    cursor."""
+    rng = np.random.default_rng(31)
+    return {"state": rng.normal(size=(4, 6, 8)).astype(np.float32),
+            "params/w": (rng.integers(-64, 64, size=(5, 7)) / 8).astype(np.float32),
+            "params/e4": (rng.integers(-16, 16, size=(9,)) / 4).astype(np.float32),
+            "cursor": np.arange(6, dtype=np.int32)}
+
+
+CKPT_META = {"step": CKPT_STEP, "note": "cross-package", "bounds": [-1.5, 2.0]}
+CKPT_DTYPES = {"params/w": "bfloat16", "params/e4": "float8_e4m3fn"}
+
+
+def _recipe_ckpt() -> dict[str, np.ndarray]:
+    """The JAX package writes ``jax_ckpt`` and reads ``port_ckpt``."""
+    import json
+
+    import jax.numpy as jnp
+
+    from repro.checkpoint import ckpt
+
+    work = Path(sys.argv[2]).parent
+    leaves = ckpt_tree()
+    tree = {"params": {}}
+    for key, v in leaves.items():
+        a = jnp.asarray(v).astype(CKPT_DTYPES[key]) if key in CKPT_DTYPES \
+            else jnp.asarray(v)
+        node = tree["params"] if key.startswith("params/") else tree
+        node[key.split("/")[-1]] = a
+    ckpt.save(str(work / "jax_ckpt"), CKPT_STEP, tree, meta=CKPT_META)
+    got, meta = ckpt.restore(str(work / "port_ckpt"))
+    res = {"port_meta": np.array(json.dumps(meta, sort_keys=True))}
+    for key in leaves:
+        node = got["params"] if key.startswith("params/") else got
+        v = np.asarray(node[key.split("/")[-1]])
+        res[f"port/{key}/dtype"] = np.array(str(v.dtype))
+        res[f"port/{key}"] = v.astype(np.float32)
+    return res
+
+
+# (rule, interval, steps, kill step, the resuming pipeline's ordering, T, S)
+# of the runs killed in one package and resumed in the other, resident M=8
+XRUN_M, XRUN_SEED = 8, 12
+XRUN_CASES = (("gol", 4, 10, 5, "hilbert", 8, 2),
+              ("jacobi", 4, 10, 6, "hilbert", 8, 1),
+              ("wave", 3, 9, 5, "row_major", 4, 1))
+
+
+def _recipe_xrun() -> dict[str, np.ndarray]:
+    """For each case: the JAX package's uninterrupted run, its run killed
+    in ``jax_kill/<rule>`` (Morton, T=4, S=1), and its resume of the
+    torch package's killed run in ``port_kill/<rule>`` on another
+    ordering/T/S."""
+    import jax.numpy as jnp
+
+    from repro.launch.faults import FaultPlan, SimulatedCrash, initial_state
+    from repro.stencil import CheckpointedRun, ResidentPipeline
+
+    work = Path(sys.argv[2]).parent
+    res = {}
+    for rule, interval, steps, kill, kind, T, S in XRUN_CASES:
+        state0 = initial_state(rule, XRUN_M, seed=XRUN_SEED)
+        first = ResidentPipeline(M=XRUN_M, T=4, S=1, rule=rule, kind="morton")
+        res[f"plain/{rule}"] = np.asarray(first.run(jnp.asarray(state0), steps))
+        try:
+            CheckpointedRun(first, str(work / "jax_kill" / rule),
+                            interval=interval,
+                            hooks=FaultPlan(kill_at_step=kill,
+                                            kill_mode="raise").hooks()
+                            ).run(state0, steps)
+        except SimulatedCrash:
+            pass
+        then = ResidentPipeline(M=XRUN_M, T=T, S=S, rule=rule, kind=kind)
+        res[f"resumed/{rule}"] = CheckpointedRun(
+            then, str(work / "port_kill" / rule), interval=interval
+        ).run(state0, steps)
+    return res
+
+
 RECIPES = {"core": _recipe_core, "gol3d": _recipe_gol3d, "pack": _recipe_pack,
            "halo": _recipe_halo, "distributed": _recipe_distributed,
-           "flash": _recipe_flash, "lm": _recipe_lm}
+           "flash": _recipe_flash, "lm": _recipe_lm, "ckpt": _recipe_ckpt,
+           "xrun": _recipe_xrun}
 
 
 if __name__ == "__main__":

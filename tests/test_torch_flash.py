@@ -13,9 +13,9 @@ import pytest
 import torch
 
 from _torch_oracle import (BLOCK_CASES, FLASH_BF16_BLOCK, FLASH_BF16_SHAPE,
-                           FLASH_SCHEDULES, FLASH_SHAPES, SCHEDULE_GRIDS,
-                           any_block_inputs, flash_inputs, gqa_inputs,
-                           reference_arrays)
+                           FLASH_NARROW_DTYPES, FLASH_SCHEDULES, FLASH_SHAPES,
+                           FLASH_WIDE_SHAPES, SCHEDULE_GRIDS, any_block_inputs,
+                           flash_inputs, gqa_inputs, reference_arrays)
 from repro.kernels import ops as jops
 from repro_torch.configs import smollm_360m
 from repro_torch.kernels import _build, ref
@@ -35,6 +35,22 @@ ANY_BLOCK_TOL = 1e-5
 # once, so they differ by at most one bf16 unit in the last place
 # (2^-7 of the value) where the f32 results straddle a rounding boundary.
 BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-5
+# head dims above 256 in f32: the plain version against the Pallas kernel,
+# one or two 16-blocks per head of 32 keys
+WIDE_F32_TOL = 1e-5
+
+
+def one_ulp(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """|got - want| within one unit in the last place of their dtype at
+    ``want``, plus BF16_ATOL: both are computed in f32 and rounded once, so
+    the f32 results straddle at most one rounding boundary, and where the
+    output is small beside the terms of its sum (|o| ~ 1e-4 from values of
+    order 1) their f32 difference, about 1e-7, can exceed a unit of f16."""
+    fi = torch.finfo(want.dtype)
+    w = want.double()
+    unit = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(fi.tiny)))) * fi.eps
+    return got.dtype == want.dtype and bool(
+        ((got.double() - w).abs() <= BF16_ATOL + unit).all())
 
 
 @pytest.fixture(scope="module")
@@ -129,6 +145,43 @@ def test_flash_attention_takes_every_block_the_reference_takes(ref_flash, case,
                                rtol=ANY_BLOCK_TOL, atol=ANY_BLOCK_TOL)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", FLASH_NARROW_DTYPES)
+def test_narrow_dtypes_within_one_unit_of_pallas_kernel(ref_flash, dtype, causal):
+    """F3: f16, float8_e4m3fn and float8_e5m2 q, k, v (the same bits in
+    both packages), widened to f32 and the output rounded once to their
+    dtype: within one unit in the last place of the JAX package's."""
+    from _torch_oracle import narrow_flash_inputs
+
+    tdt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a.view(np.uint16 if dtype == "float16" else np.uint8)
+                                .copy()).view(tdt)
+               for a in narrow_flash_inputs(dtype, 60 + FLASH_NARROW_DTYPES.index(dtype)))
+    got = flash_attention_fwd(q, k, v, causal=causal, block_q=16, block_k=16,
+                              schedule="hilbert")
+    want = torch.from_numpy(ref_flash[f"narrow/{dtype}/{int(causal)}"]).view(tdt)
+    assert got.dtype == tdt and got.shape == q.shape
+    assert one_ulp(got, want)
+    assert flash_design(tdt, q.shape[2], 16, 16) == "simple"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", FLASH_WIDE_SHAPES, ids=[f"D{s[2]}" for s in FLASH_WIDE_SHAPES])
+def test_head_dims_up_to_1024_match_pallas_kernel(ref_flash, shape, dtype):
+    """F1 above 256: D ∈ {320, 512, 1024} (320 padded to the DP=512
+    build), f32 within 1e-5 and bf16 within one unit in the last place of
+    the JAX package's kernel."""
+    BH, S, D = shape
+    tdt = getattr(torch, dtype)
+    q, k, v = (t.to(tdt) for t in _t(*flash_inputs((BH, S, S, D), D)))
+    got = flash_attention_fwd(q, k, v, causal=True, block_q=16, block_k=16)
+    want = torch.from_numpy(ref_flash[f"wide/{D}/{dtype}"])
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=WIDE_F32_TOL, atol=WIDE_F32_TOL)
+    else:
+        assert one_ulp(got, want.to(tdt))
+
+
 def test_padded_head_dim_leaves_the_attention_unchanged():
     """The card's route for a head dim that is not a multiple of 8: zero
     columns padded to the next multiple, scores scaled by the true D, the
@@ -183,10 +236,11 @@ def test_wrapper_checks_and_counts_no_launch_on_cpu():
             flash_attention_fwd(q, k, v, **{"block_q": 16, "block_k": 16, **kw})
     with pytest.raises(ValueError, match="schedule"):
         flash_attention_fwd(q, k, v, schedule="peano")
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
+    with pytest.raises(TypeError, match="float32, bfloat16, float16, "
+                                        "float8_e4m3fn or float8_e5m2"):
         flash_attention_fwd(q, k.double(), v)
     with pytest.raises(ValueError, match="head dim"):
-        wide = torch.zeros(2, 64, 264)
+        wide = torch.zeros(2, 64, 1032)
         flash_attention_fwd(wide, wide, wide)
     with pytest.raises(ValueError, match="BH or D"):
         flash_attention_fwd(q, k[:1], v[:1])
@@ -208,6 +262,11 @@ def test_wrapper_checks_and_counts_no_launch_on_cpu():
     (torch.bfloat16, 256, 128, 128, "simple"),  # gemma3-1b's head dim
     (torch.bfloat16, 160, 64, 64, "simple"),
     (torch.float32, 256, 64, 64, "simple"),
+    (torch.float16, 64, 128, 128, "simple"),    # F3: f16 and fp8
+    (torch.float8_e4m3fn, 64, 128, 128, "simple"),
+    (torch.float8_e5m2, 128, 64, 64, "simple"),
+    (torch.bfloat16, 512, 128, 128, "simple"),  # F1 up to D = 1024
+    (torch.float32, 1024, 64, 64, "simple"),
 ])
 def test_flash_design_is_a_function_of_dtype_d_and_blocks(dtype, d, block_q,
                                                           block_k, want):

@@ -1,6 +1,7 @@
-"""The torch package stands alone: it imports neither JAX nor the JAX
-package, asks for CUDA explicitly and never falls back to the CPU, and
-its kernel builder imports on machines without a CUDA compiler."""
+"""The torch package stands alone: it imports neither JAX, nor the JAX
+package, nor ml_dtypes (which comes with JAX, and the card's machine
+lacks), asks for CUDA explicitly and never falls back to the CPU, and its
+kernel builder imports on machines without a CUDA compiler."""
 
 import os
 import re
@@ -24,9 +25,12 @@ def test_import_pulls_in_no_jax():
             "repro_torch.kernels.flash_attn, repro_torch.models, "
             "repro_torch.models.attention, repro_torch.models.transformer, "
             "repro_torch.configs.registry, repro_torch.configs.smollm_360m, "
-            "repro_torch.serve, repro_torch.launch.serve, sys; "
-            "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
-            "or m.startswith(('jax.', 'repro.'))]; "
+            "repro_torch.serve, repro_torch.launch.serve, "
+            "repro_torch.checkpoint, repro_torch.checkpoint.ckpt, "
+            "repro_torch.stencil.runner, repro_torch.launch.faults, "
+            "repro_torch.launch.elastic, sys; "
+            "bad = [m for m in sys.modules if m in ('jax', 'repro', 'ml_dtypes') "
+            "or m.startswith(('jax.', 'repro.', 'ml_dtypes.'))]; "
             "assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120,
@@ -36,14 +40,16 @@ def test_import_pulls_in_no_jax():
 
 def test_sources_name_no_jax_import():
     pat = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.]|import\s+repro(\s|\.|$)"
-                     r"|from\s+repro(\s|\.))", re.M)
+                     r"|from\s+repro(\s|\.)|import\s+ml_dtypes|from\s+ml_dtypes)",
+                     re.M)
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     names = {f.name for f in files}
     assert {"cache_model.py", "surfaces.py", "sfc_gather.py", "domain.py",
             "halo.py", "flash_attn.py", "attention.py", "transformer.py",
             "zoo.py", "params.py", "layers.py", "registry.py",
-            "smollm_360m.py", "serve_step.py", "serve.py"} <= names
+            "smollm_360m.py", "serve_step.py", "serve.py", "ckpt.py",
+            "runner.py", "faults.py", "elastic.py"} <= names
     assert len(files) > 10
     for f in files:
         assert not pat.search(f.read_text()), f

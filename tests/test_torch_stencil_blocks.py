@@ -1,5 +1,5 @@
 """The repack form's tap sum, ``stencil_sum_blocks``: its wrapper on f32,
-bf16 and f16 blocks (the plain version, on CPU tensors) against the JAX
+bf16, f16 and fp8 blocks (the plain version, on CPU tensors) against the JAX
 package's Pallas kernel in interpret mode; the pure function that picks
 its CUDA design; and plain emulations of the Hopper design
 (csrc/stencil3d_blocks_sm90.cu): its shared-memory layout, the schedule
@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_oracle import to_torch
+from _torch_oracle import FP8, fp8_pair, fp8_values, same_bits, to_torch
 from repro.kernels import stencil3d as jk
 from repro.kernels.ops import _build_uniform_weights
 from repro_torch.kernels import _build
@@ -67,6 +67,20 @@ def test_half_blocks_with_random_weights_match_pallas_kernel(g, T, dtype):
     assert bool(((got - want).abs() <= s ** 3 * 2.0 ** -22 * scale).all())
 
 
+@pytest.mark.parametrize("dtype", FP8)
+@pytest.mark.parametrize("g,T", REF_CASES)
+def test_fp8_blocks_match_pallas_kernel(g, T, dtype):
+    """fp8 blocks holding 440–500 and NaN, neighbour-count weights: f32
+    out, bit-equal to the JAX package's kernel and NaN where it is."""
+    W = T + 2 * g
+    jb, tb = fp8_pair(fp8_values((6, W, W, W), seed=20 * g + T), dtype)
+    w = _build_uniform_weights(g)
+    want = jk.stencil_sum_blocks(jb, jnp.asarray(w), g=g, interpret=True)
+    got = tk.stencil_sum_blocks(tb, to_torch(w), g=g)
+    assert got.dtype == torch.float32 and got.shape == (6, T, T, T)
+    assert same_bits(got, want)
+
+
 @pytest.mark.parametrize("T,g,dtype,want", [
     (8, 1, torch.float32, "sm90"),    # Gol3d.run's repack path (CHIP_REPACK)
     (8, 1, torch.bfloat16, "sm90"),
@@ -80,6 +94,8 @@ def test_half_blocks_with_random_weights_match_pallas_kernel(g, T, dtype):
     (8, 3, torch.float32, "simple"),   # g outside {1, 2}
     (16, 4, torch.bfloat16, "simple"),
     (8, 1, torch.float64, "simple"),   # no kernel takes it; the wrapper raises
+    (8, 2, torch.float8_e4m3fn, "simple"),  # fp8 takes the first design
+    (16, 2, torch.float8_e5m2, "simple"),
 ])
 def test_blocks_design_is_a_function_of_shape_and_dtype(T, g, dtype, want):
     assert tk.blocks_design(T, g, dtype) == want
@@ -89,16 +105,18 @@ def test_blocks_design_over_its_whole_domain():
     """sm90 exactly where csrc/stencil3d_blocks_sm90.cu has an instance:
     T ∈ {8, 16}, g ∈ {1, 2}, f32, bf16 or f16, one (T+2g)³ window a
     multiple of 16 bytes and the ring within the shared memory of one
-    thread block: all 12 instances the source builds."""
+    thread block: all 12 instances the source builds. fp8 blocks, which
+    the kernels take, go to the first design."""
     picked = []
+    hopper = (torch.float32, torch.bfloat16, torch.float16)
     for T in range(1, 33):
         for g in range(1, 5):
-            for dtype in (torch.float32, torch.bfloat16, torch.float16,
-                          torch.float64, torch.int32):
+            for dtype in hopper + (torch.float8_e4m3fn, torch.float8_e5m2,
+                                   torch.float64, torch.int32):
                 design = tk.blocks_design(T, g, dtype)
                 assert design in ("sm90", "simple")
                 item = torch.empty((), dtype=dtype).element_size()
-                want = (T in (8, 16) and g in (1, 2) and dtype in tk.DTYPES
+                want = (T in (8, 16) and g in (1, 2) and dtype in hopper
                         and (T + 2 * g) ** 3 * item % 16 == 0
                         and tk.blocks_sm90_smem_bytes(T, g, item) <= 232_448)
                 assert (design == "sm90") == want, (T, g, dtype)
