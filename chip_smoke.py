@@ -60,8 +60,12 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    f32 and bf16, causal and not, blocks 64 and 128; fault F3, f16 and both
    fp8 dtypes at BH=60, S=2048, D=64 and at smaller shapes (D=40 padded,
    Sq > Sk, non-causal), and F1 up to D=1024: D ∈ {320, 512, 1024} at
-   BH=16, S=2048 in bf16 and f32, and three small wide cases;
-   and one launch at S=32768,
+   BH=16, S=2048 in bf16 and f32, and three small wide cases; F1 above
+   1024, the wide instance: D ∈ {1152, 2048, 4096} at BH=4, S=256 in f32
+   and bf16, causal and not, and D=1100 (f16) and D=2048 (fp8); F4, more
+   folded heads than a grid has rows: BH=65,540 at S=64, D=64 in both
+   designs (bf16 with 64-blocks on the Hopper design, f32 on the simple
+   one); and one launch at S=32768,
    BH=15 whose last 256 rows must equal the plain version on those
    queries (the diagonal is aligned to the end) — within one bf16 unit in
    the last place (|d| <= 1e-5 + 2^-7 |plain|) for bf16, within one unit
@@ -101,6 +105,25 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    blockize) alone, the measured checkpoint share of an interval beside
    ``checkpoint_traffic_fraction(256, 8, 1, 4, S=4)`` = 0.1818, and the
    interval at which a checkpoint would be half the wall;
+   the slice of this round, the ROI-query service (``CHIP_ROI_*``):
+   ``CHIP_MAIN`` run 16 steps from the faults CLI's initial state
+   (4 fused launches, all of the Hopper design, equal to the checkpoint
+   slice's ``Gol3d.run_resident``), unblockized on the card and blockized
+   along each of the four orderings; per ordering the device->host copy of
+   the 64 MiB store and the service's manifest (32,768 crc32s) on the host
+   clock, then the benchmark's ROI suite (octant, octant_hi, slab, tile,
+   viewport): ``roi_model``'s ranges, blocks, bytes and utilization, query
+   ms with a cold cache (a fresh service) and a warm one (median of 5),
+   fetches, hits and misses, every payload bit-equal to the dense cube's
+   slice, and Hilbert's range count below row-major's on every ROI; one
+   query on the wave phase's C=2 store; the fault matrix (failed and
+   bit-flipped fetches recovered and exhausted, a poisoned cache entry
+   quarantined, a fetch slower than the deadline, load shed at
+   ``max_in_flight=1`` under ``query_batch``), every outcome typed and
+   every served voxel exact; the CLI's demo in this process, then
+   ``python -m repro_torch.launch.serve --stencil --M 256 --faults`` as a
+   subprocess, as given and with a 2 s deadline and 12 queries in flight
+   (``SERVE_DONE``, its 4 fused launches read from its output);
    full-width ``smollm-360m`` (weights from a seeded ``torch.Generator``):
    ``Model.prefill`` at B=4, S=2048 with ``use_flash_kernel`` (exactly
    one ``flash_attention_fwd`` launch per layer, every one of the Hopper
@@ -143,7 +166,10 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    bounds and conv3d in f16; the simple flash design in f16 and fp8 at
    BH=60, S=2048, D=64 (SDPA in f16 beside f16; no PyTorch call takes
    fp8) and at D ∈ {320, 512, 1024} (BH=16, S=2048) in bf16 and f32
-   beside SDPA, each against its bound; the repack path's
+   beside SDPA, each against its bound; the wide instance at D ∈ {1152,
+   2048, 4096} (BH=4, S=256) and both designs at BH=65,540 (S=64, D=64)
+   in bf16 and f32, beside the plain version, SDPA and the bound; the
+   repack path's
    ms per timestep (host clock) and the kernel's share of it;
    prefill ms and tokens/s
    with the kernel and with plain attention, decode ms per step and
@@ -301,6 +327,17 @@ def main() -> int:
                                            state_crc)
     from repro_torch.stencil.runner import (CheckpointedRun, RunHealthError,
                                             health_check)
+    from repro_torch.configs.gol3d import (CHIP_ROI, CHIP_ROI_CACHE_BLOCKS,
+                                           CHIP_ROI_DEADLINE_S, CHIP_ROI_FAULTS,
+                                           CHIP_ROI_MAX_IN_FLIGHT, CHIP_ROI_REPS,
+                                           CHIP_ROI_SLOW_DEADLINE_S,
+                                           CHIP_ROI_SLOW_S, CHIP_ROI_STEPS,
+                                           roi_suite)
+    from repro_torch.launch.faults import ServeFaultPlan
+    from repro_torch.launch.serve import _demo_rois
+    from repro_torch.serve import (QUERY_STATUSES, StencilQueryService,
+                                   StoreLayout, ranges_to_blocks, roi_model,
+                                   roi_to_ranges)
     FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)  # faults F2 and F3
 
     KINDS = tuple(spec.name for spec in CHIP_ORDERINGS)
@@ -901,6 +938,21 @@ def main() -> int:
     check({flash_design(c[5], c[0][3], c[2], c[3]) for c in f3_cases + f1_wide}
           == {"simple"}, "f16, fp8 and head dims above 256 take the simple design")
     cases += f3_cases + f1_wide
+    # F1 above 1024: the wide instance (16 q rows x 16 keys a thread block,
+    # the head dim in slices of 256, the accumulator in an f32 workspace);
+    # F4: more folded heads than a grid has rows (65,535), launched in
+    # chunks by both designs
+    f1_xwide = [((4, 256, 256, D), causal, 64, 64, "hilbert", dt)
+                for D in (1152, 2048, 4096) for dt in (torch.float32, torch.bfloat16)
+                for causal in (True, False)]
+    f1_xwide += [((2, 128, 192, 1100), True, 32, 64, "row_major", torch.float16),
+                 ((2, 128, 128, 2048), False, 128, 128, "morton", FP8[0])]
+    f4_cases = [((65540, 64, 64, 64), True, 64, 64, "morton", dt)
+                for dt in (torch.bfloat16, torch.float32)]
+    check({flash_design(c[5], c[0][3], c[2], c[3]) for c in f1_xwide} == {"simple"}
+          and [flash_design(c[5], 64, 64, 64) for c in f4_cases] == ["sm90", "simple"],
+          "head dims above 1024 take the simple design; BH=65540 both designs")
+    cases += f1_xwide + f4_cases
     # the Hopper design: every (D, block_q, block_k) instance, causal; rows
     # with no key in an unvisited q block (384 x 256, 128-blocks) and in a
     # visited one (384 x 320, 128 x 64: rows 0..63 of q block 0); Sq < Sk;
@@ -924,7 +976,7 @@ def main() -> int:
             check(not bool(got[:, :Sq - Sk].any()), "rows with no key are not 0")
         n_cmp += 1
         n_sm90 += design == "sm90"
-    check(n_sm90 == 3 * len(sm90), f"{n_sm90} cases ran the Hopper design")
+    check(n_sm90 == 3 * len(sm90) + 1, f"{n_sm90} cases ran the Hopper design")
     L_S = lm_sizes.CHIP_LONG_SEQ
     lq, lk, lv = (randn(H, L_S, HD, dtype=torch.bfloat16) for _ in range(3))
     tail = flash_on("sm90", lq, lk, lv, causal=True, block_q=FLASH_BLOCK,
@@ -987,6 +1039,7 @@ def main() -> int:
     wave = ResidentPipeline(M=M_MAIN, T=T_MAIN, g=G_MAIN, kind="hilbert", S=2,
                             rule="wave", bc="neumann0", device=dev)
     got, counts = counted(lambda: wave.run(fields, 8))
+    wave_cube = got  # the ROI slice serves its store
     want = fields
     for _ in range(8):
         want = ref.fields_step_ref(want, uniform_weights(G_MAIN, dev), G_MAIN,
@@ -1306,6 +1359,239 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     sync()
     log(f"slice: checkpointed and elastic runs ({time.perf_counter() - t1:.1f} s)")
+
+    # The slice of this round: the ROI-query service (serve/roi.py,
+    # serve/service.py) over the store the card computed. CHIP_ROI
+    # (= CHIP_MAIN: M=256, T=8, S=4, Hilbert) runs 16 steps from the faults
+    # CLI's initial state (counted: 4 fused launches of the Hopper design);
+    # the result, unblockized on the card, is blockized along each ordering,
+    # copied to the host and served. Host clock throughout: the service is
+    # host code and launches no kernel.
+    t1 = time.perf_counter()
+    M_Q, T_Q = CHIP_ROI.M, CHIP_ROI.block_T
+
+    def host_ms(fn, n=3):
+        """(median ms of n host-clock readings of fn(), ending in a
+        synchronize; fn's last result)."""
+        times = []
+        for _ in range(n):
+            sync()
+            t_ = time.perf_counter()
+            res_ = fn()
+            sync()
+            times.append(1e3 * (time.perf_counter() - t_))
+        return statistics.median(times), res_
+
+    def box_of(roi):
+        return tuple(slice(l_, h_) for l_, h_ in zip(roi.lo, roi.hi))
+
+    def served_exactly(r, want):
+        """The payload equals ``want`` wherever it was delivered, and its
+        NaN footprint is exactly the missing ranges' blocks (C=1 aligned
+        boxes: a missing block lies whole in the box; gol has no NaN)."""
+        miss = torch.isnan(r.payload)
+        n_miss = sum(b - a for a, b in r.missing_ranges) * T_Q ** 3
+        return torch.equal(r.payload[~miss], want[~miss]) and int(miss.sum()) == n_miss
+
+    roi_pipe = ResidentPipeline(M=M_Q, T=T_Q, g=CHIP_ROI.g,
+                                kind=CHIP_ROI.ordering.name, S=CHIP_ROI.substeps,
+                                device=dev)
+    roi_state = torch.from_numpy(initial_state("gol", M_Q, seed=0)).to(dev)
+    roi_cube, counts = counted(lambda: roi_pipe.run(roi_state, CHIP_ROI_STEPS))
+    check(counts["stencil_step_fused"] == -(-CHIP_ROI_STEPS // CHIP_ROI.substeps),
+          f"ROI snapshot: {counts} fused launches")
+    dense = roi_cube.cpu()
+    check(np.array_equal(dense.numpy(), ck_want),
+          "ROI snapshot != Gol3d.run_resident from the same state")
+    log(f"ROI slice, snapshot: {CHIP_ROI.ordering.name} M={M_Q} T={T_Q} "
+        f"S={CHIP_ROI.substeps} K={CHIP_ROI_STEPS}: launches fused "
+        f"{counts['stencil_step_fused']} (all of the Hopper design), equal to "
+        f"Gol3d.run_resident; live cells {int(dense.sum().item())}")
+    suite = roi_suite(M_Q)
+    roi_row = {"snapshot_fused_launches": counts["stencil_step_fused"]}
+    hosts = {}
+    for kind in KINDS:
+        st_k = blockize(roi_cube, T_Q, kind)
+        lay = StoreLayout(M=M_Q, T=T_Q, kind=kind)
+        t_copy, host_st = host_ms(lambda: st_k.cpu())
+        make = lambda: StencilQueryService(  # noqa: E731
+            store=host_st, layout=lay, cache_blocks=CHIP_ROI_CACHE_BLOCKS,
+            deadline_s=CHIP_ROI_DEADLINE_S)
+        t_manifest, svc = host_ms(make)
+        hosts[kind] = host_st
+        row_k = {"d2h_ms": t_copy, "manifest_ms": t_manifest}
+        log(f"ROI {kind}: device->host copy of the {host_st.nbytes / 2 ** 20:.0f} "
+            f"MiB store {t_copy:.2f} ms, manifest of {lay.nb} crc32s "
+            f"{t_manifest:.2f} ms (host clock, median of 3)")
+        for name, roi in suite:
+            model = roi_model(lay, roi)
+            want = dense[box_of(roi)]
+            cold = []
+            for _ in range(CHIP_ROI_REPS):
+                fresh = make()
+                t_ = time.perf_counter()
+                r = fresh.query(roi)
+                cold.append(1e3 * (time.perf_counter() - t_))
+                check(r.status == "ok" and torch.equal(r.payload, want)
+                      and len(r.ranges) == model["ranges"]
+                      and r.cache_hits == 0
+                      and r.cache_misses == model["blocks_touched"]
+                      and r.fetch_calls == model["ranges"],
+                      f"ROI {kind} {name} cold: {r.status} {len(r.ranges)} ranges "
+                      f"{r.cache_hits} hits {r.cache_misses} misses "
+                      f"{r.fetch_calls} fetches, model {model}")
+            cold_r = r
+            svc.query(roi)  # fills the cache
+            warm = []
+            for _ in range(CHIP_ROI_REPS):
+                t_ = time.perf_counter()
+                r = svc.query(roi)
+                warm.append(1e3 * (time.perf_counter() - t_))
+                check(r.status == "ok" and torch.equal(r.payload, want)
+                      and r.cache_hits == model["blocks_touched"]
+                      and r.fetch_calls == 0,
+                      f"ROI {kind} {name} warm: {r.status} {r.cache_hits} hits "
+                      f"{r.fetch_calls} fetches")
+            row_k[name] = dict(model, cold_ms=statistics.median(cold),
+                               warm_ms=statistics.median(warm),
+                               fetch_calls=cold_r.fetch_calls,
+                               cold_misses=cold_r.cache_misses,
+                               warm_hits=r.cache_hits)
+            log(f"ROI {kind} {name} {roi.lo}->{roi.hi}: {model['ranges']} ranges, "
+                f"{model['blocks_touched']} blocks, {model['bytes_read']} bytes "
+                f"read, utilization {model['utilization']:.4f}; cold "
+                f"{statistics.median(cold):.2f} ms (readings "
+                f"{', '.join(f'{t:.1f}' for t in cold)}; {cold_r.fetch_calls} "
+                f"fetches, {cold_r.cache_misses} misses), warm "
+                f"{statistics.median(warm):.2f} ms (readings "
+                f"{', '.join(f'{t:.1f}' for t in warm)}; {r.cache_hits} hits, "
+                f"0 fetches); payloads bit-equal to the dense slice")
+        roi_row[kind] = row_k
+        del st_k, svc
+    for name, _ in suite:
+        check(roi_row["hilbert"][name]["ranges"] < roi_row["row_major"][name]["ranges"],
+              f"ROI {name}: Hilbert {roi_row['hilbert'][name]['ranges']} ranges, "
+              f"row-major {roi_row['row_major'][name]['ranges']}")
+    log("ROI ranges by ordering: " + "; ".join(
+        f"{name} " + ", ".join(f"{k} {roi_row[k][name]['ranges']}" for k in KINDS)
+        for name, _ in suite) + " (Hilbert below row-major on every ROI)")
+
+    # the wave phase's C=2 store (Hilbert): one query, both fields
+    wlay = StoreLayout(M=M_Q, T=T_Q, kind="hilbert", channels=2)
+    wsvc = StencilQueryService(store=blockize_fields(wave_cube, T_Q, "hilbert"),
+                               layout=wlay, deadline_s=CHIP_ROI_DEADLINE_S)
+    octant = suite[0][1]
+    r = wsvc.query(octant)
+    check(r.status == "ok" and tuple(r.payload.shape) == (2,) + octant.shape
+          and torch.equal(r.payload, wave_cube[(slice(None),) + box_of(octant)].cpu()),
+          f"ROI on the wave store: {r.status}")
+    log(f"ROI wave store C=2: octant {r.status}, {len(r.ranges)} ranges, "
+        f"{r.fetch_calls} fetches, payload {tuple(r.payload.shape)} bit-equal to "
+        f"the dense slice")
+    del wsvc
+
+    # the fault matrix on the Hilbert and row-major stores (real clock)
+    lay_h = StoreLayout(M=M_Q, T=T_Q, kind="hilbert")
+    lay_r = StoreLayout(M=M_Q, T=T_Q, kind="row_major")
+    want_o = dense[box_of(octant)]
+    outcomes = {}
+    svc = StencilQueryService(store=hosts["hilbert"], layout=lay_h, max_retries=3,
+                              cache_blocks=CHIP_ROI_CACHE_BLOCKS,
+                              deadline_s=CHIP_ROI_DEADLINE_S)
+    plan = ServeFaultPlan(**CHIP_ROI_FAULTS)
+    svc.fetch = plan.wrap_fetch(svc.fetch)
+    r = svc.query(octant)
+    check(r.status == "ok" and r.retries == 3 and r.integrity_failures == 1
+          and r.fetch_calls == 4 and torch.equal(r.payload, want_o),
+          f"faults recovered: {r}")
+    outcomes["fail 2 + bit flip 1, 3 retries"] = r
+    b0 = int(ranges_to_blocks(roi_to_ranges(lay_h, octant))[0])
+    check(svc.poison_cache(b0), "the octant's first block is cached")
+    r = svc.query(octant)
+    check(r.status == "ok" and r.quarantined == 1 and r.cache_misses == 1
+          and r.fetch_calls == 1 and torch.equal(r.payload, want_o),
+          f"cache poison: {r}")
+    outcomes["poisoned cache entry"] = r
+    svc = StencilQueryService(store=hosts["row_major"], layout=lay_r,
+                              deadline_s=CHIP_ROI_DEADLINE_S)
+    svc.fetch = ServeFaultPlan(**CHIP_ROI_FAULTS).wrap_fetch(svc.fetch)
+    r = svc.query(octant)
+    check(r.status == "degraded" and r.missing_ranges == (r.ranges[0],)
+          and served_exactly(r, want_o), f"faults exhausted: {r.status} "
+          f"{r.missing_ranges[:3]}")
+    outcomes["fail 2 + bit flip 1, 2 retries (row-major)"] = r
+    slab = suite[2][1]
+    svc = StencilQueryService(store=hosts["row_major"], layout=lay_r,
+                              deadline_s=CHIP_ROI_SLOW_DEADLINE_S)
+    svc.fetch = ServeFaultPlan(slow_first=10 ** 6, slow_s=CHIP_ROI_SLOW_S
+                               ).wrap_fetch(svc.fetch)
+    r = svc.query(slab)
+    check(r.status == "degraded" and "deadline" in (r.error or "")
+          and r.elapsed_s >= CHIP_ROI_SLOW_DEADLINE_S
+          and served_exactly(r, dense[box_of(slab)]),
+          f"deadline pressure: {r.status} {r.error}")
+    outcomes["fetch slower than the deadline (row-major slab)"] = r
+    svc = StencilQueryService(store=hosts["hilbert"], layout=lay_h,
+                              max_in_flight=CHIP_ROI_MAX_IN_FLIGHT,
+                              deadline_s=CHIP_ROI_DEADLINE_S)
+    batch = svc.query_batch([roi for _, roi in suite])
+    kinds_ = [r.status for r in batch]
+    check(set(kinds_) <= set(QUERY_STATUSES) and "ok" in kinds_
+          and "rejected" in kinds_ and svc.stats()["in_flight"] == 0
+          and all(torch.equal(r.payload, dense[box_of(r.roi)])
+                  for r in batch if r.status == "ok")
+          and all(r.payload is None for r in batch if r.status == "rejected"),
+          f"load shedding: {kinds_}")
+    outcomes[f"query_batch of the suite, max_in_flight={CHIP_ROI_MAX_IN_FLIGHT}"] = batch
+    for what, r in outcomes.items():
+        rs = r if isinstance(r, list) else [r]
+        check(all(x.status in QUERY_STATUSES for x in rs), f"{what}: untyped")
+        log(f"ROI fault {what}: " + "; ".join(
+            f"{x.status} ranges {len(x.ranges)} missing {len(x.missing_ranges)} "
+            f"retries {x.retries} integrity {x.integrity_failures} quarantined "
+            f"{x.quarantined} hits {x.cache_hits} misses {x.cache_misses} "
+            f"fetches {x.fetch_calls} {1e3 * x.elapsed_s:.1f} ms" for x in rs))
+    roi_row["faults"] = {what: [x.status for x in (r if isinstance(r, list) else [r])]
+                         for what, r in outcomes.items()}
+    # the CLI's demo in this process on the Hilbert store, its settings
+    # (100 ms deadline, 256 cached blocks, 4 in flight, the faults), each
+    # query's outcome and time to set beside the subprocess's below
+    svc = StencilQueryService(store=hosts["hilbert"], layout=lay_h, cache_blocks=256,
+                              deadline_s=0.1, max_in_flight=4)
+    svc.fetch = ServeFaultPlan(**CHIP_ROI_FAULTS).wrap_fetch(svc.fetch)
+    demo = _demo_rois(M_Q, T_Q, 12, 0)
+    t_ = time.perf_counter()
+    batch = svc.query_batch(demo)
+    demo_ms = 1e3 * (time.perf_counter() - t_)
+    check(all(x.status in QUERY_STATUSES for x in batch)
+          and all(torch.equal(x.payload[~torch.isnan(x.payload)],
+                              dense[box_of(x.roi)][~torch.isnan(x.payload)])
+                  and bool(torch.isnan(x.payload).any()) == bool(x.missing_ranges)
+                  for x in batch if x.payload is not None),
+          "the CLI's demo in this process")
+    log(f"ROI the CLI's demo in this process ({demo_ms:.1f} ms): " + "; ".join(
+        f"q{i:02d} {x.status} {len(x.ranges)} ranges {x.cache_misses} misses "
+        f"{1e3 * x.elapsed_s:.1f} ms" for i, x in enumerate(batch)))
+    del svc, hosts, outcomes, batch
+
+    # the CLI, as a user runs it on the card: as given (a 100 ms deadline),
+    # then with a deadline the M=256 queries can meet and room for all 12
+    for extra in ((), ("--deadline-ms", "2000", "--max-in-flight", "12")):
+        r = cli("repro_torch.launch.serve", "--stencil", "--M", str(M_Q), "--faults",
+                *extra)
+        sub = cli_launches(r.stdout, "SERVE_LAUNCHES ") if r.returncode == 0 else {}
+        lines = r.stdout.splitlines()
+        check(r.returncode == 0 and "SERVE_DONE" in lines
+              and sub.get("stencil_step_fused") == 4,
+              f"serve CLI: exit {r.returncode}\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+        for ln in lines:
+            if ln.startswith("[serve]"):
+                log(f"serve CLI {ln[:300]}")
+        log(f"serve CLI --stencil --M {M_Q} --faults {' '.join(extra)}: SERVE_DONE, "
+            f"its launches {sub}")
+        roi_row["cli_launches"] = sub
+    sync()
+    log(f"ROI slice ({time.perf_counter() - t1:.1f} s)")
 
     # smollm-360m at full width: prefill with the flash kernel in every
     # layer, then greedy decode (which runs no kernel: masked_sdpa over the
@@ -1633,6 +1919,7 @@ def main() -> int:
         del st8, out8, acc8, halo8
     # the checkpointed main path's readings (the slice's phase above)
     by_name["stencil_step_fused"]["checkpointed_main_path"] = slice_row
+    by_name["stencil_step_fused"]["roi_service"] = roi_row
     for k in kernels:
         check(k["max_abs_err"] == 0.0, f"{k['name']} differs from plain: {k}")
         k.update(route="cuda", source=SOURCES[k["name"]],
@@ -1786,6 +2073,41 @@ def main() -> int:
                else f"in {lib_dt} {x_lib:.4f} ms")
             + f"; bound {x_bound:.4f} ms by {x_by} ({x_ops / 1e9:.2f} GFLOP)")
         del xq, xk, xv
+    # F1 above 1024 (the wide instance; 128-blocks, Morton, causal) at BH=4,
+    # S=256, and F4: both designs at BH=65,540 (S=64, D=64, 64-blocks), each
+    # beside its plain version, SDPA in the same dtype and its bound
+    xcases = [((4, 256, D), dt, FLASH_BLOCK) for D in (1152, 2048, 4096)
+              for dt in (torch.float32, torch.bfloat16)]
+    xcases += [((65540, 64, 64), dt, 64) for dt in (torch.bfloat16, torch.float32)]
+    for (nbh, ns, nd), dt, blk in xcases:
+        xq, xk, xv = (randn(nbh, ns, nd, dtype=dt) for _ in range(3))
+        design = flash_design(dt, nd, blk, blk)
+        x_fn = lambda: flash_attention_fwd(xq, xk, xv, causal=True, block_q=blk,
+                                           block_k=blk, schedule="morton")
+        x_plain = lambda: ref.flash_attention_ref(xq, xk, xv)
+        x_err = flash_err(x_fn(), x_plain(), f"{(nbh, ns, nd)} {dt} {design} timed")
+        x_ms = cuda_ms(x_fn, reps=3, inner=3)
+        x_plain_ms = cuda_ms(x_plain, reps=3, inner=1)
+        # SDPA on the heads as (B, H) with H <= 65535: its f32 kernel too
+        # puts the heads on a grid axis, and at one batch row of 65,540
+        # heads its launch fails (invalid configuration)
+        b_ = next(b for b in range(1, nbh + 1) if nbh % b == 0 and nbh // b <= 65535)
+        x4 = [t.view(b_, nbh // b_, ns, nd) for t in (xq, xk, xv)]
+        x_lib = cuda_ms(lambda: F.scaled_dot_product_attention(*x4, is_causal=True),
+                        reps=3, inner=3)
+        x_ops = 4 * nd * nbh * ns * (ns + 1) // 2
+        x_bound, x_by = bound(4 * xq.numel() * xq.element_size(), x_ops, peak[dt])
+        tag = f"{str(dt).split('.')[1]}_" + (f"d{nd}" if nbh < 65536 else f"bh{nbh}")
+        frow.update({f"{tag}_ms": x_ms, f"{tag}_plain_ms": x_plain_ms,
+                     f"{tag}_bound_ms": x_bound, f"{tag}_library_ms": x_lib,
+                     f"{tag}_max_abs_err": x_err})
+        log(f"flash_attention_fwd {(nbh, ns, nd)} {dt} causal morton {blk}-blocks, "
+            f"{design} design: {x_ms:.4f} ms ({x_ops / x_ms / 1e9:.1f} TFLOP/s, "
+            f"{100 * x_bound / x_ms:.2f}% of the bound), max |d| to plain "
+            f"{x_err:.3g}; plain {x_plain_ms:.3f} ms; SDPA in {dt} on "
+            f"{tuple(x4[0].shape)} {x_lib:.4f} ms; bound {x_bound:.4f} ms by "
+            f"{x_by} ({x_ops / 1e9:.2f} GFLOP)")
+        del xq, xk, xv, x4
 
     # the repack path Gol3d.run at CHIP_REPACK: ms per timestep end to end
     # (host clock, median of 5 after a warm-up) and the repack kernel's

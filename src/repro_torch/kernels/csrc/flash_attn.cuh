@@ -55,6 +55,21 @@
 // row starts 16 bytes after the one before it, so that the parts' 16-byte
 // reads of one key fall on different banks.
 //
+// Head dims above 1024 (the wide instance, flash_fwd_wide_kernel): a q row
+// no longer fits in registers, so a thread block of 16 x 16 threads takes
+// 16 q rows and scores 16 keys at a time, one (row, key) pair a thread,
+// walking the head dim in slices of 256 columns staged in shared memory
+// (q and k for the scores, then v for the products). Each row's f32
+// accumulator lives in a workspace in global memory (one f32 per output
+// element, from the wrapper) and is updated slice by slice, acc = acc *
+// alpha + P V, in the order of the narrow instances: the online-softmax
+// update per 16 keys, each product an fmaf in key order. Any head dim
+// runs.
+//
+// Any number of folded heads runs: a launch covers at most 65535 of them
+// (gridDim.y's limit), so the heads are launched in chunks, each kernel
+// told its first head (bh0).
+//
 // What bounds it on an H100: at the prefill's shape (BH = 60, S = 2048,
 // D = 64, causal, bf16) the function needs 4 * D * BH * S(S+1)/2 = 3.2e10
 // operations (0.033 ms at 989 TFLOP/s in bf16) against 42 MB of traffic
@@ -77,7 +92,8 @@ namespace {
 
 constexpr int KC = 16;           // keys scored per online-softmax update
 constexpr int MAX_ROWS = 128;    // largest q block
-constexpr int MAX_DP = 1024;     // widest padded head dim
+constexpr int MAX_DP = 1024;     // widest head dim kept in registers
+constexpr int MAX_GRID_Y = 65535;  // folded heads a launch covers
 
 // Threads per q row, and keys staged in shared memory at a time, at DP.
 __host__ __device__ constexpr int threads_per_row(int dp) { return dp > 128 ? dp / 128 : 1; }
@@ -156,8 +172,8 @@ template <typename T, int DP>
 __global__ void __launch_bounds__(max_rows(DP) * threads_per_row(DP))
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 const int* __restrict__ plan, int sq, int sk, int d, int bq,
-                 int bk, int causal, float scale) {
+                 const int* __restrict__ plan, int bh0, int sq, int sk, int d,
+                 int bq, int bk, int causal, float scale) {
   constexpr int NS = threads_per_row(DP);  // threads per q row
   constexpr int DH = DP / NS;              // head-dim columns per thread
   constexpr int RP = row_pitch(DP);        // a tile row in shared memory
@@ -182,8 +198,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const unsigned lanes = ((1u << NS) - 1) << ((threadIdx.x & 31) & ~(NS - 1));
   const int row = iq * bq + r;
   const int offs = sk - sq;
-  const int64_t qbase = (static_cast<int64_t>(blockIdx.y) * sq + row) * d;
-  const int64_t kvbase = static_cast<int64_t>(blockIdx.y) * sk * d;
+  const int64_t bh = static_cast<int64_t>(bh0) + blockIdx.y;
+  const int64_t qbase = (bh * sq + row) * d;
+  const int64_t kvbase = bh * sk * d;
 
   float qr[DH], acc[DH];
 #pragma unroll
@@ -293,11 +310,156 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return err;
   const int rows = bq < max_rows(DP) ? bq : max_rows(DP);
   const int parts = (bq + rows - 1) / rows;
-  kern<<<dim3(sq / bq * parts, bh), rows * threads_per_row(DP), smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), plan, sq, sk, d, bq, bk,
-      causal, scale);
-  return cudaGetLastError();
+  for (int h0 = 0; h0 < bh; h0 += MAX_GRID_Y) {
+    const int nh = bh - h0 < MAX_GRID_Y ? bh - h0 : MAX_GRID_Y;
+    kern<<<dim3(sq / bq * parts, nh), rows * threads_per_row(DP), smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), plan, h0, sq, sk, d, bq,
+        bk, causal, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// ---- head dims above MAX_DP: the wide instance
+constexpr int WR = 16;       // q rows per thread block
+constexpr int WK = KC;       // keys per online-softmax update
+constexpr int WS = 256;      // head-dim columns staged at a time
+constexpr int WP = WS + 1;   // a staged row's pitch: the 16 keys' reads of
+                             // one column fall on 16 banks
+static_assert(WR == WK, "q rows and keys are staged by one loop");
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float widen(__half x) { return __half2float(x); }
+__device__ __forceinline__ float widen(__nv_fp8_e4m3 x) {
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(x.__x, __NV_E4M3)));
+}
+__device__ __forceinline__ float widen(__nv_fp8_e5m2 x) {
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(x.__x, __NV_E5M2)));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(WR * WK)
+flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ o,
+                      float* __restrict__ ws, const int* __restrict__ plan,
+                      int bh0, int sq, int sk, int d, int bq, int bk,
+                      int causal, float scale) {
+  __shared__ float qs[WR * WP];   // a slice of the q rows
+  __shared__ float kv[WK * WP];   // a slice of the keys, then of the values
+  __shared__ float sp[WR][WK];    // scores, then probabilities
+  __shared__ float scale_r[WR];   // each row's alpha, at the end 1 / l
+  const int nq = sq / bq;
+  const int* q_order = plan;
+  const int* row_ptr = plan + nq;
+  const int* cols = plan + 2 * nq + 1;
+  // q block q_order[i] is run by `parts` thread blocks of WR rows each
+  const int parts = (bq + WR - 1) / WR;
+  const int iq = q_order[blockIdx.x / parts];
+  const int r0 = iq * bq + (blockIdx.x % parts) * WR;  // first q row
+  const int nr = min(WR, iq * bq + bq - r0);           // rows of this part
+  const int tid = threadIdx.x, tr = tid / WK, tj = tid % WK;
+  const int offs = sk - sq;
+  const int64_t bh = static_cast<int64_t>(bh0) + blockIdx.y;
+  const int64_t qbase = (bh * sq + r0) * d;
+  const int64_t kvbase = bh * sk * d;
+  float* acc = ws + qbase;  // (nr, d), row-major like the output
+  for (int e = tid; e < nr * d; e += blockDim.x) acc[e] = 0.f;
+  float m = -INFINITY, l = 0.f;  // row tid's running max and sum (tid < WR)
+
+  const int stop = row_ptr[iq + 1];
+  for (int t = row_ptr[iq]; t < stop; ++t) {
+    for (int jb = 0; jb < bk; jb += WK) {
+      const int key0 = cols[t] * bk + jb;
+      const int n = min(WK, bk - jb);
+      // no row of this part sees these keys, nor the tile's later ones
+      if (causal && key0 > r0 + nr - 1 + offs) break;
+      // the scores: each thread's dot product, slice by slice
+      float dot = 0.f;
+      for (int c0 = 0; c0 < d; c0 += WS) {
+        const int w = min(WS, d - c0);
+        __syncthreads();  // the previous slice (or the previous P V) is done
+        for (int e = tid; e < WR * w; e += blockDim.x) {
+          const int r = e / w, c = e - r * w;
+          qs[r * WP + c] = r < nr ? widen(q[qbase + static_cast<int64_t>(r) * d + c0 + c]) : 0.f;
+          kv[r * WP + c] = r < n ? widen(k[kvbase + static_cast<int64_t>(key0 + r) * d + c0 + c])
+                                 : 0.f;
+        }
+        __syncthreads();
+        const float* qr = qs + tr * WP;
+        const float* kr = kv + tj * WP;
+        for (int c = 0; c < w; ++c) dot = fmaf(qr[c], kr[c], dot);
+      }
+      const bool visible = tr < nr && tj < n && (!causal || key0 + tj <= r0 + tr + offs);
+      sp[tr][tj] = visible ? dot * scale : -INFINITY;
+      __syncthreads();
+      // the online softmax, one thread a row: as the narrow instances do
+      // for one chunk of 16 keys; a row that sees none of them is left as
+      // it was (alpha = 1, p = 0)
+      if (tid < WR) {
+        float mc = -INFINITY;
+        for (int j = 0; j < WK; ++j) mc = fmaxf(mc, sp[tid][j]);
+        if (mc == -INFINITY) {
+          scale_r[tid] = 1.f;
+          for (int j = 0; j < WK; ++j) sp[tid][j] = 0.f;
+        } else {
+          const float m_new = fmaxf(m, mc);
+          const float alpha = expf(m - m_new);
+          l *= alpha;
+          for (int j = 0; j < WK; ++j) {
+            const float p = expf(sp[tid][j] - m_new);
+            l += p;
+            sp[tid][j] = p;
+          }
+          scale_r[tid] = alpha;
+          m = m_new;
+        }
+      }
+      // acc = acc * alpha + P V, slice by slice
+      for (int c0 = 0; c0 < d; c0 += WS) {
+        const int w = min(WS, d - c0);
+        __syncthreads();  // P and alpha are written; kv is free
+        for (int e = tid; e < WK * w; e += blockDim.x) {
+          const int j = e / w, c = e - j * w;
+          kv[j * WP + c] = j < n ? widen(v[kvbase + static_cast<int64_t>(key0 + j) * d + c0 + c])
+                                 : 0.f;
+        }
+        __syncthreads();
+        for (int e = tid; e < nr * w; e += blockDim.x) {
+          const int r = e / w, c = e - r * w;
+          float* a = acc + static_cast<int64_t>(r) * d + c0 + c;
+          float x = *a * scale_r[r];
+          for (int j = 0; j < WK; ++j) x = fmaf(sp[r][j], kv[j * WP + c], x);
+          *a = x;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  if (tid < WR) scale_r[tid] = l > 0.f ? 1.f / l : 0.f;
+  __syncthreads();  // and every thread's last acc update is visible
+  for (int e = tid; e < nr * d; e += blockDim.x)
+    store(o + qbase + e, acc[e] * scale_r[e / d]);
+}
+
+template <typename T>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o,
+                        float* ws, const int* plan, int bh, int sq, int sk,
+                        int d, int bq, int bk, int causal, float scale,
+                        cudaStream_t stream) {
+  const int parts = (bq + WR - 1) / WR;
+  for (int h0 = 0; h0 < bh; h0 += MAX_GRID_Y) {
+    const int nh = bh - h0 < MAX_GRID_Y ? bh - h0 : MAX_GRID_Y;
+    flash_fwd_wide_kernel<T><<<dim3(sq / bq * parts, nh), WR * WK, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), ws, plan, h0, sq, sk, d,
+        bq, bk, causal, scale);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 template <typename T>
@@ -315,19 +477,24 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
 
 // The C entry point of one element type's library: q (bh, sq, d), k and v
 // (bh, sk, d), o (bh, sq, d), contiguous, all of type T, 16-byte aligned; d
-// a multiple of 8 up to 1024; bq and bk in [1, 128] dividing sq and sk;
-// plan int32 [q_order (sq/bq) | row_ptr (sq/bq + 1) | cols]. The wrapper
-// checks all of this; the kernel trusts it.
+// a multiple of 8, and above MAX_DP ws an f32 workspace of bh * sq * d
+// elements (else unused); bq and bk in [1, 128] dividing sq and sk; plan
+// int32 [q_order (sq/bq) | row_ptr (sq/bq + 1) | cols]. The wrapper checks
+// all of this; the kernel trusts it.
 template <typename T>
-int flash_entry(const void* q, const void* k, const void* v, void* o,
+int flash_entry(const void* q, const void* k, const void* v, void* o, void* ws,
                 const void* plan, int bh, int sq, int sk, int d, int bq, int bk,
                 int causal, float scale, void* stream) {
-  if (d < 8 || d > MAX_DP || d % 8 || bq < 1 || bq > MAX_ROWS || bk < 1 ||
-      bk > 128 || sq % bq || sk % bk)
+  if (d < 8 || d % 8 || (d > MAX_DP && ws == nullptr) || bh < 1 || bq < 1 ||
+      bq > MAX_ROWS || bk < 1 || bk > 128 || sq % bq || sk % bk)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_d<T>(q, k, v, o, static_cast<const int*>(plan),
-                                      bh, sq, sk, d, bq, bk, causal, scale,
-                                      static_cast<cudaStream_t>(stream)));
+  const int* pl = static_cast<const int*>(plan);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (d > MAX_DP)
+    return static_cast<int>(launch_wide<T>(q, k, v, o, static_cast<float*>(ws), pl,
+                                           bh, sq, sk, d, bq, bk, causal, scale, st));
+  return static_cast<int>(launch_d<T>(q, k, v, o, pl, bh, sq, sk, d, bq, bk,
+                                      causal, scale, st));
 }
 
 }  // namespace

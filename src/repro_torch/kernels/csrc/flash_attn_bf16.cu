@@ -6,10 +6,10 @@
 extern "C" {
 
 int repro_flash_attention_fwd(const void* q, const void* k, const void* v,
-                              void* o, const void* plan, int bh, int sq,
+                              void* o, void* ws, const void* plan, int bh, int sq,
                               int sk, int d, int bq, int bk, int causal,
                               float scale, void* stream) {
-  return flash_entry<__nv_bfloat16>(q, k, v, o, plan, bh, sq, sk, d, bq, bk, causal,
+  return flash_entry<__nv_bfloat16>(q, k, v, o, ws, plan, bh, sq, sk, d, bq, bk, causal,
                                     scale, stream);
 }
 

@@ -7,7 +7,7 @@
 // src/repro/kernels/flash_attn.py for bf16 q, k, v with D in {64, 128} and
 // block_q, block_k in {64, 128}; kernels/flash_attn.py picks it by a pure
 // function of dtype, D and block sizes (flash_design), and every other case
-// runs the simple kernel of csrc/flash_attn.cu. The function is the same:
+// runs the simple kernel of csrc/flash_attn.cuh. The function is the same:
 // scores q.k in f32 scaled by 1/sqrt(D), keys past the causal diagonal
 // (aligned to the end: col <= row + Sk - Sq) masked, an online softmax per
 // row, a row with no key gives 0, the output rounded once to bf16. One
@@ -306,7 +306,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
                       __nv_bfloat16* __restrict__ o, const int* __restrict__ plan,
-                      int sq, int sk, int causal, float scale_log2) {
+                      int bh0, int sq, int sk, int causal, float scale_log2) {
   constexpr int NC = BQ / ROWS_WG;          // consumer warpgroups
   constexpr int Q_BYTES = BQ * D * 2;
   constexpr int KV_BYTES = BK * D * 2;      // one K or V tile
@@ -323,7 +323,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int first = plan[nq + iq];
   const int n_tiles = plan[nq + iq + 1] - first;
   const int* cols = plan + 2 * nq + 1 + first;
-  const int bh = blockIdx.y;
+  const int bh = bh0 + blockIdx.y;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -479,10 +479,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   auto kern = flash_fwd_sm90_kernel<D, BQ, BK>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kern<<<dim3(sq / BQ, bh), (BQ / ROWS_WG + 1) * 128, smem, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), plan, sq, sk, causal,
-      scale_log2);
-  return cudaGetLastError();
+  // a launch covers at most 65535 folded heads (gridDim.y): the heads go
+  // in chunks, each kernel told its first head; the maps span them all
+  for (int h0 = 0; h0 < bh; h0 += 65535) {
+    const int nh = bh - h0 < 65535 ? bh - h0 : 65535;
+    kern<<<dim3(sq / BQ, nh), (BQ / ROWS_WG + 1) * 128, smem, stream>>>(
+        tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), plan, h0, sq, sk,
+        causal, scale_log2);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 template <int D>
@@ -510,7 +517,7 @@ int repro_flash_attention_fwd_sm90(const void* q, const void* k, const void* v,
   auto st = static_cast<cudaStream_t>(stream);
   auto pl = static_cast<const int*>(plan);
   if ((d != 64 && d != 128) || (bq != 64 && bq != 128) ||
-      (bk != 64 && bk != 128) || sq % bq || sk % bk || bh < 1 || bh > 65535)
+      (bk != 64 && bk != 128) || sq % bq || sk % bk || bh < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const float sl = scale * 1.4426950408889634f;  // log2(e) / sqrt(d)
   if (d == 64) return launch_blocks<64>(q, k, v, o, pl, bh, sq, sk, bq, bk, causal, sl, st);

@@ -9,8 +9,10 @@ and the block sizes) picks one: ``csrc/flash_attn_sm90.cu`` (wgmma on the
 tensor cores, TMA-fed K/V ring, warp specialisation) for bf16 with D and
 both blocks in {64, 128}, the simple design ``csrc/flash_attn.cuh`` (one
 thread per q row, D/128 above a head dim of 128, f32 on the CUDA cores;
-one library per element type, ``csrc/flash_attn_<type>.cu``) for every
-other case: f32, f16 and fp8 q, k, v and head dims up to 1024 among them.
+above 1024 one thread per (q row, key) and the accumulator in an f32
+workspace; one library per element type, ``csrc/flash_attn_<type>.cu``)
+for every other case: f32, f16 and fp8 q, k, v and every head dim among
+them. Either takes any number of folded heads.
 
 The (q-block × kv-block) score grid is a 2D index space (DESIGN.md §5);
 on the TPU one sequential grid walks its cells in curve order. On the GPU
@@ -49,7 +51,7 @@ _DTYPES = {torch.float32: "flash_attn_f32", torch.bfloat16: "flash_attn_bf16",
            torch.float8_e4m3fn: "flash_attn_e4m3",
            torch.float8_e5m2: "flash_attn_e5m2"}
 _MAX_BLOCK = 128
-_MAX_HEAD_DIM = 1024  # the simple design's widest build
+_MAX_REG_HEAD_DIM = 1024  # wider head dims take the simple design's wide instance
 _SM90_SIZES = (64, 128)  # D, block_q and block_k of the sm90 design
 SCHEDULES = ("row_major", "morton", "hilbert")
 
@@ -99,8 +101,8 @@ def flash_design(dtype: torch.dtype, d: int, block_q: int, block_k: int) -> str:
     """The CUDA design ``flash_attention_fwd`` launches for these
     arguments: ``"sm90"`` (``csrc/flash_attn_sm90.cu``) for bf16 with D,
     block_q and block_k each 64 or 128; ``"simple"``
-    (``csrc/flash_attn.cu``) for every other case. Nothing else, and never
-    a failure, decides it."""
+    (``csrc/flash_attn.cuh``) for every other case, any head dim among
+    them. Nothing else, and never a failure, decides it."""
     if dtype == torch.bfloat16 and d in _SM90_SIZES and block_q in _SM90_SIZES \
             and block_k in _SM90_SIZES:
         return "sm90"
@@ -117,7 +119,8 @@ def _lib(design: str, dtype: torch.dtype) -> tuple[ctypes.CDLL, object]:
         lib = _build.library(_DTYPES[dtype])
         fn = lib.repro_flash_attention_fwd
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, p]
+    # the simple design's entry also takes the wide instance's workspace
+    fn.argtypes = [p] * (5 if design == "sm90" else 6) + [i] * 7 + [f, p]
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -140,14 +143,12 @@ def _check(q, k, v, block_q: int, block_k: int, schedule: str) -> None:
             or v.device != q.device:
         raise ValueError(f"q, k and v must lie on one cuda or cpu device, got "
                          f"{q.device}, {k.device}, {v.device}")
-    if not 1 <= D <= _MAX_HEAD_DIM:
-        raise ValueError(f"head dim {D} is not in [1, {_MAX_HEAD_DIM}]")
+    if D < 1:
+        raise ValueError(f"head dim {D} is not at least 1")
     for name, b, s in (("block_q", block_q, Sq), ("block_k", block_k, k.shape[1])):
         if not 1 <= b <= _MAX_BLOCK or s % b:
             raise ValueError(f"{name}={b} must lie in [1, {_MAX_BLOCK}] and "
                              f"divide the sequence ({s})")
-    if BH > 65535:
-        raise ValueError(f"BH={BH} exceeds the grid's 65535 rows")
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -158,10 +159,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Heads are pre-folded into the batch axis (ops.py handles GQA). f32,
     bf16, f16, float8_e4m3fn or float8_e5m2, arithmetic in f32, output in
     q's dtype (rounded once, as kernels/ref.round_to rounds); the causal
-    diagonal is aligned to the end and a row with no key gives 0. D is at
-    most 1024;
-    block_q and block_k are at most 128 and divide Sq and Sk (ops.py
-    picks them, as the JAX package does). Anything else raises. The
+    diagonal is aligned to the end and a row with no key gives 0. Any D
+    and any BH; block_q and block_k are at most 128 and divide Sq and Sk
+    (ops.py picks them, as the JAX package does). Anything else raises. The
     output does not depend on ``schedule`` beyond f32 rounding. On the
     card :func:`flash_design` picks the kernel; a failed build or launch
     raises.
@@ -179,7 +179,9 @@ def _fwd_on_card(design: str, q, k, v, causal, block_q: int, block_k: int,
     are checked again in C, which returns an error that raises). A head
     dim that is not a multiple of 8 is zero-padded for the kernel's
     16-byte loads (:func:`pad_head_dim`); the scale stays 1/sqrt(D) of
-    the true D and the padded columns are sliced off the output."""
+    the true D and the padded columns are sliced off the output. Above a
+    padded head dim of 1024 the simple design keeps its f32 accumulator in
+    a workspace of one float per output element."""
     D = q.shape[2]
     q, k, v = pad_head_dim(q, k, v)
     BH, Sq, Dp = q.shape
@@ -195,10 +197,14 @@ def _fwd_on_card(design: str, q, k, v, causal, block_q: int, block_k: int,
                for t in (q, k, v))
     out = torch.empty_like(q)
     lib, fn = _lib(design, q.dtype)
-    _build.launch(lib, "flash_attention_fwd", fn, q.device, q.data_ptr(),
-                  k.data_ptr(), v.data_ptr(), out.data_ptr(), plan.data_ptr(),
-                  BH, Sq, Sk, Dp, block_q, block_k, int(bool(causal)),
-                  1.0 / math.sqrt(D))
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
+    if design == "simple":
+        ws = torch.empty(q.shape, dtype=torch.float32, device=q.device) \
+            if Dp > _MAX_REG_HEAD_DIM else None
+        ptrs.append(None if ws is None else ws.data_ptr())
+    _build.launch(lib, "flash_attention_fwd", fn, q.device, *ptrs,
+                  plan.data_ptr(), BH, Sq, Sk, Dp, block_q, block_k,
+                  int(bool(causal)), 1.0 / math.sqrt(D))
     _build.FLASH_DESIGN_LAUNCHES[design] += 1
     return out if Dp == D else out[..., :D].contiguous()
 

@@ -32,8 +32,8 @@ ordering/T/S/mesh changes, and packages, between the two invocations) —
 and then ``FAULTS_LAUNCHES`` with the kernel launches of the run as JSON.
 ``--mesh px,py,pz`` runs a DistributedPipeline on a local mesh of that
 shape (every shard in this process); ``--M`` is then the local edge.
-The serving half of the reference module (``ServeFaultPlan``) comes with
-the ROI-query service.
+The serving half, :class:`ServeFaultPlan`, injects the ROI-query
+service's storage faults (serve/service.py).
 """
 
 from __future__ import annotations
@@ -43,16 +43,18 @@ import glob
 import json
 import os
 import shutil
+import time
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from repro_torch.checkpoint.ckpt import crc32
 from repro_torch.stencil.runner import RunHooks
 
-__all__ = ["FaultPlan", "KILL_EXIT", "SimulatedCrash", "bitflip_chunk",
-           "drop_manifest", "initial_state", "make_dangling_tmp",
-           "state_crc", "truncate_chunk", "wipe"]
+__all__ = ["FaultPlan", "KILL_EXIT", "ServeFaultPlan", "SimulatedCrash",
+           "bitflip_chunk", "drop_manifest", "initial_state",
+           "make_dangling_tmp", "state_crc", "truncate_chunk", "wipe"]
 
 KILL_EXIT = 17  # distinguishable from python tracebacks (1) and signals
 
@@ -159,6 +161,62 @@ def make_dangling_tmp(ckpt_dir: str, step: int) -> str:
 
 def wipe(ckpt_dir: str) -> None:
     shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+# -- serving fault matrix (serve/service.StencilQueryService) ---------------
+
+@dataclass
+class ServeFaultPlan:
+    """Declarative fault schedule for the ROI-query service — wraps the
+    service's ``fetch`` callable so every storage pathology of the
+    serving matrix is injectable per fetch call:
+
+    fail_first:    first N fetch calls raise FetchError (transient
+                   storage failure; the service's bounded retry must
+                   absorb N <= max_retries, degrade beyond)
+    slow_first:    first N fetch calls advance the service clock (or
+                   really sleep) by ``slow_s`` before returning — the
+                   slow-storage / deadline-pressure fault
+    bitflip_first: the N fetch calls after the failed ones return a
+                   payload with one bit flipped (byte ``size // 3``,
+                   ``^ 0x20``, as the JAX package flips it) — silent media
+                   corruption the manifest crc must catch
+
+    Counters are mutable on purpose: one plan instance injects a finite
+    burst and then behaves — the recovery path is the object under test.
+    ``calls`` records every fetch the wrapped callable saw.
+    """
+    fail_first: int = 0
+    slow_first: int = 0
+    slow_s: float = 0.0
+    bitflip_first: int = 0
+    calls: int = 0
+
+    def wrap_fetch(self, fetch, *, sleep=None):
+        """``fetch(start, stop)`` with this plan's faults layered on.
+        ``sleep`` (default time.sleep) is injectable so tests can drive
+        a fake clock instead of waiting. The wrapped fetch returns a CPU
+        tensor (a copy, never the store's own bytes)."""
+        from repro_torch.serve.roi import as_host
+        from repro_torch.serve.service import FetchError
+
+        do_sleep = time.sleep if sleep is None else sleep
+
+        def faulty(start, stop):
+            self.calls += 1
+            n = self.calls
+            if n <= self.slow_first and self.slow_s > 0:
+                do_sleep(self.slow_s)
+            if n <= self.fail_first:
+                raise FetchError(f"injected fetch failure #{n} "
+                                 f"on range [{start}, {stop})")
+            data = as_host(fetch(start, stop)).clone()
+            if n <= self.fail_first + self.bitflip_first:
+                raw = data.reshape(-1).view(torch.uint8)
+                raw[raw.numel() // 3] ^= 0x20
+            return data
+
+        return faulty
 
 
 # -- deterministic initial states (shared by CLI runs and tests) ------------

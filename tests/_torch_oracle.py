@@ -555,6 +555,10 @@ BLOCK_CASES = (tuple((S, 3, 1, 64) for S in (8, 12, 24, 100))
 # bf16, 16-blocks
 FLASH_NARROW_SHAPE, FLASH_NARROW_DTYPES = (2, 64, 32), ("float16",) + FP8
 FLASH_WIDE_SHAPES = ((1, 32, 320), (1, 32, 512), (1, 32, 1024))
+# F1 above 1024 (the simple design's wide instance on the card), and F4:
+# more folded heads than a CUDA grid's 65535 rows, (BH, S, D)
+FLASH_XWIDE_SHAPES = ((1, 32, 1152), (1, 32, 2048))
+FLASH_MANY_HEADS = (65536, 8, 8)
 
 
 def narrow_flash_inputs(dtype: str, seed: int):
@@ -665,6 +669,19 @@ def _recipe_flash() -> dict[str, np.ndarray]:
             res[f"wide/{D}/{dtype}"] = np.asarray(flash_attention_fwd(
                 q, k, v, causal=True, block_q=16, block_k=16,
                 schedule="morton", interpret=True)).astype(np.float32)
+    for BH, S, D in FLASH_XWIDE_SHAPES:
+        for dtype in ("float32", "bfloat16"):
+            for causal in (True, False):
+                q, k, v = (jnp.asarray(a).astype(getattr(jnp, dtype))
+                           for a in flash_inputs((BH, S, S, D), D))
+                res[f"xwide/{D}/{dtype}/{int(causal)}"] = np.asarray(flash_attention_fwd(
+                    q, k, v, causal=causal, block_q=16, block_k=16,
+                    schedule="hilbert", interpret=True)).astype(np.float32)
+    from repro.kernels.ref import attention_ref
+
+    BH, S, D = FLASH_MANY_HEADS
+    q, k, v = (jnp.asarray(a) for a in flash_inputs((BH, S, S, D), 65))
+    res["many_heads"] = np.asarray(attention_ref(q, k, v, causal=True))
     return res
 
 
@@ -807,10 +824,41 @@ def _recipe_xrun() -> dict[str, np.ndarray]:
     return res
 
 
+# the stencil serving CLI on the CPU at M=16 with --faults: one query at a
+# time under each ordering (sequential, so every count is deterministic),
+# and the 12-query batch with room for every query in flight and a long
+# deadline (no query shed or timed out; which queries absorb the injected
+# faults depends on the pool's interleaving, in either package)
+SERVE_CLI_CASES = tuple(
+    ("--M", "16", "--T", "4", "--ordering", kind, "--queries", str(n), "--faults",
+     "--seed", str(seed))
+    for kind, n, seed in (("hilbert", 1, 0), ("row_major", 1, 0),
+                          ("morton", 1, 1), ("column_major", 1, 2))
+) + (("--M", "16", "--T", "4", "--faults", "--max-in-flight", "12",
+      "--deadline-ms", "60000"),)
+
+
+def _recipe_serve_cli() -> dict[str, np.ndarray]:
+    """The JAX package's ``launch.serve --stencil`` on each of
+    :data:`SERVE_CLI_CASES`: its standard output, by case number."""
+    import contextlib
+    import io
+
+    from repro.launch import serve
+
+    res = {}
+    for n, args in enumerate(SERVE_CLI_CASES):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            serve.stencil_main(serve.build_parser().parse_args(["--stencil", *args]))
+        res[f"stdout/{n}"] = np.array(out.getvalue())
+    return res
+
+
 RECIPES = {"core": _recipe_core, "gol3d": _recipe_gol3d, "pack": _recipe_pack,
            "halo": _recipe_halo, "distributed": _recipe_distributed,
            "flash": _recipe_flash, "lm": _recipe_lm, "ckpt": _recipe_ckpt,
-           "xrun": _recipe_xrun}
+           "xrun": _recipe_xrun, "serve_cli": _recipe_serve_cli}
 
 
 if __name__ == "__main__":

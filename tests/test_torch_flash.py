@@ -13,8 +13,9 @@ import pytest
 import torch
 
 from _torch_oracle import (BLOCK_CASES, FLASH_BF16_BLOCK, FLASH_BF16_SHAPE,
-                           FLASH_NARROW_DTYPES, FLASH_SCHEDULES, FLASH_SHAPES,
-                           FLASH_WIDE_SHAPES, SCHEDULE_GRIDS, any_block_inputs,
+                           FLASH_MANY_HEADS, FLASH_NARROW_DTYPES, FLASH_SCHEDULES,
+                           FLASH_SHAPES, FLASH_WIDE_SHAPES, FLASH_XWIDE_SHAPES,
+                           SCHEDULE_GRIDS, any_block_inputs,
                            flash_inputs, gqa_inputs, reference_arrays)
 from repro.kernels import ops as jops
 from repro_torch.configs import smollm_360m
@@ -182,6 +183,38 @@ def test_head_dims_up_to_1024_match_pallas_kernel(ref_flash, shape, dtype):
         assert one_ulp(got, want.to(tdt))
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", FLASH_XWIDE_SHAPES, ids=[f"D{s[2]}" for s in FLASH_XWIDE_SHAPES])
+def test_head_dims_above_1024_match_pallas_kernel(ref_flash, shape, dtype, causal):
+    """F1 above 1024: D ∈ {1152, 2048} (the simple design's wide instance
+    on the card), f32 within 1e-5 and bf16 within one unit in the last
+    place of the JAX package's kernel; the design is the simple one."""
+    BH, S, D = shape
+    tdt = getattr(torch, dtype)
+    q, k, v = (t.to(tdt) for t in _t(*flash_inputs((BH, S, S, D), D)))
+    got = flash_attention_fwd(q, k, v, causal=causal, block_q=16, block_k=16,
+                              schedule="hilbert")
+    want = torch.from_numpy(ref_flash[f"xwide/{D}/{dtype}/{int(causal)}"])
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=WIDE_F32_TOL, atol=WIDE_F32_TOL)
+    else:
+        assert one_ulp(got, want.to(tdt))
+    assert flash_design(tdt, D, 16, 16) == "simple"
+
+
+def test_more_heads_than_a_grid_has_rows_match_jax(ref_flash):
+    """F4: BH = 65,536 folded heads (a CUDA grid has 65,535 rows; both
+    designs launch the heads in chunks) against the JAX package's
+    attention_ref, within 1e-5."""
+    BH, S, D = FLASH_MANY_HEADS
+    q, k, v = _t(*flash_inputs((BH, S, S, D), 65))
+    got = flash_attention_fwd(q, k, v, causal=True, block_q=8, block_k=8)
+    assert got.shape == (BH, S, D)
+    torch.testing.assert_close(got, torch.from_numpy(ref_flash["many_heads"]),
+                               rtol=WIDE_F32_TOL, atol=WIDE_F32_TOL)
+
+
 def test_padded_head_dim_leaves_the_attention_unchanged():
     """The card's route for a head dim that is not a multiple of 8: zero
     columns padded to the next multiple, scores scaled by the true D, the
@@ -240,8 +273,8 @@ def test_wrapper_checks_and_counts_no_launch_on_cpu():
                                         "float8_e4m3fn or float8_e5m2"):
         flash_attention_fwd(q, k.double(), v)
     with pytest.raises(ValueError, match="head dim"):
-        wide = torch.zeros(2, 64, 1032)
-        flash_attention_fwd(wide, wide, wide)
+        empty = torch.zeros(2, 64, 0)  # no head dim: the reference's scale is 1/0
+        flash_attention_fwd(empty, empty, empty)
     with pytest.raises(ValueError, match="BH or D"):
         flash_attention_fwd(q, k[:1], v[:1])
     with pytest.raises(NotImplementedError, match="forward only"):
@@ -267,6 +300,8 @@ def test_wrapper_checks_and_counts_no_launch_on_cpu():
     (torch.float8_e5m2, 128, 64, 64, "simple"),
     (torch.bfloat16, 512, 128, 128, "simple"),  # F1 up to D = 1024
     (torch.float32, 1024, 64, 64, "simple"),
+    (torch.bfloat16, 2048, 64, 64, "simple"),   # F1 above 1024: the wide instance
+    (torch.float8_e5m2, 4096, 128, 128, "simple"),
 ])
 def test_flash_design_is_a_function_of_dtype_d_and_blocks(dtype, d, block_q,
                                                           block_k, want):

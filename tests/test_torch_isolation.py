@@ -28,9 +28,11 @@ def test_import_pulls_in_no_jax():
             "repro_torch.serve, repro_torch.launch.serve, "
             "repro_torch.checkpoint, repro_torch.checkpoint.ckpt, "
             "repro_torch.stencil.runner, repro_torch.launch.faults, "
-            "repro_torch.launch.elastic, sys; "
-            "bad = [m for m in sys.modules if m in ('jax', 'repro', 'ml_dtypes') "
-            "or m.startswith(('jax.', 'repro.', 'ml_dtypes.'))]; "
+            "repro_torch.launch.elastic, repro_torch.serve.roi, "
+            "repro_torch.serve.service, sys; "
+            "bad = [m for m in sys.modules if m in ('jax', 'repro', 'ml_dtypes', "
+            "'benchmarks') or m.startswith(('jax.', 'repro.', 'ml_dtypes.', "
+            "'benchmarks.'))]; "
             "assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120,
@@ -40,7 +42,8 @@ def test_import_pulls_in_no_jax():
 
 def test_sources_name_no_jax_import():
     pat = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.]|import\s+repro(\s|\.|$)"
-                     r"|from\s+repro(\s|\.)|import\s+ml_dtypes|from\s+ml_dtypes)",
+                     r"|from\s+repro(\s|\.)|import\s+ml_dtypes|from\s+ml_dtypes"
+                     r"|import\s+benchmarks|from\s+benchmarks)",
                      re.M)
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
@@ -49,7 +52,8 @@ def test_sources_name_no_jax_import():
             "halo.py", "flash_attn.py", "attention.py", "transformer.py",
             "zoo.py", "params.py", "layers.py", "registry.py",
             "smollm_360m.py", "serve_step.py", "serve.py", "ckpt.py",
-            "runner.py", "faults.py", "elastic.py"} <= names
+            "runner.py", "faults.py", "elastic.py", "roi.py",
+            "service.py"} <= names
     assert len(files) > 10
     for f in files:
         assert not pat.search(f.read_text()), f
@@ -59,6 +63,7 @@ def test_cuda_default_raises_without_a_card(monkeypatch):
     import types
 
     from repro_torch.configs.smollm_360m import SMOKE
+    from repro_torch.launch import serve as serve_launcher
     from repro_torch.models import Model
     from repro_torch.serve import greedy_decode
     from repro_torch.stencil.domain import make_stencil_mesh
@@ -74,6 +79,9 @@ def test_cuda_default_raises_without_a_card(monkeypatch):
         make_stencil_mesh((2, 2, 2))
     with pytest.raises(RuntimeError, match="cuda"):
         Model(SMOKE)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve_launcher.stencil_main(serve_launcher.build_parser().parse_args(
+            ["--stencil", "--M", "8", "--T", "4"]))
     with pytest.raises(RuntimeError, match="cuda"):
         Model(SMOKE, device="cuda")
     with pytest.raises(RuntimeError, match="cuda"):

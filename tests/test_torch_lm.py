@@ -250,9 +250,13 @@ def test_serve_launcher_on_cpu(capsys, monkeypatch):
     out = tserve.lm_main(args)
     assert out.shape == (2, 3) and out.dtype == torch.int32
     assert "smollm-360m-smoke on cpu: 6 tokens" in capsys.readouterr().out
-    monkeypatch.setattr("sys.argv", ["serve", "--stencil"])
-    with pytest.raises(SystemExit, match="queue 1, item 10"):
-        tserve.main()
+    monkeypatch.setattr("sys.argv", ["serve", "--stencil", "--device", "cpu",
+                                     "--M", "16", "--T", "4", "--queries", "3",
+                                     "--deadline-ms", "60000"])
+    tserve.main()
+    out = capsys.readouterr().out.splitlines()
+    assert out[-2] == "SERVE_DONE" and out[-1].startswith("SERVE_LAUNCHES ")
+    assert sum("exact=True" in ln for ln in out) == 3
 
 
 
