@@ -174,7 +174,27 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    prefill ms and tokens/s
    with the kernel and with plain attention, decode ms per step and
    tokens/s (median of 5 after a warm-up), and the kernel's share of the
-   prefill's device time (profiler).
+   prefill's device time (profiler);
+5. the training path (``train_phase``, sizes ``CHIP_TRAIN_*`` in
+   ``configs/smollm_360m.py``): ``make_train_step`` on full-width
+   ``smollm-360m`` (32 layers, bf16 activations, f32 master weights,
+   ``use_flash_kernel``, ``remat=True``) at B=4, S=4096: 64
+   ``flash_attention_fwd`` launches a step, every one of the Hopper design
+   (32 forward, 32 in the remat recompute; counted as a main path); the
+   same step with the kernel's plain version in its place (loss within
+   1e-2 relative, gradient norm within 2%), and again from the same state
+   (bit-equal or not, reported); ``microbatches=2`` (loss within 1e-2);
+   4 layers in f32 activations at B=1, S=2048 on the simple design (loss
+   within 1e-5 relative, every gradient leaf within a relative L2 error of
+   1e-4 of the plain version's); a SMOKE ``Trainer`` of 4 steps killed
+   after its checkpoint at step 2 and resumed, bit-equal to the unbroken
+   run under ``torch.use_deterministic_algorithms(True)``, in a temporary
+   directory removed at the end; ``python -m repro_torch.launch.train
+   --smoke`` as a subprocess; then ms per step and tokens/s (median of 3
+   after a warm-up), peak memory, and one profiled step: device busy,
+   flash forward's, the recompute backward's, the GEMMs' shares and
+   AdamW's time. Its readings go into the kernels line under
+   ``flash_attention_fwd.training``.
 
 It prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
@@ -186,6 +206,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import re
 import shutil
@@ -248,6 +269,14 @@ LM_LOGIT_TOL = 0.1
 # two sit 0.05 apart, as far as the masked_sdpa prefill: 32 layers of
 # bf16 rounding carry any flip that far)
 LM_F32_LOGIT_TOL = 1e-4
+# the training step with the flash kernel against the same step with its
+# plain version swapped in: at full depth in bf16 the two round the
+# attention output to bf16 at other places, and 32 layers carry that into
+# the loss (1e-2 relative) and the gradient norm (2%); in f32 activations
+# (4 layers) only the summation order differs: the loss to 1e-5 relative and
+# every gradient leaf to a relative L2 error of 1e-4
+TRAIN_BF16_LOSS_RTOL, TRAIN_BF16_GNORM_RTOL = 1e-2, 2e-2
+TRAIN_F32_LOSS_RTOL, TRAIN_F32_GRAD_RTOL = 1e-5, 1e-4
 # a checkpoint every CKPT_INTERVAL steps on the checkpointed main path
 CKPT_INTERVAL = 4
 
@@ -275,6 +304,319 @@ def kernel_name(line: str) -> str | None:
                         re.findall(r"Li(\d+)E|\d+([A-Za-z_]\w*?)(?=L|E|$)", args)]
                 return line[start:end] + (f"<{', '.join(args)}>" if args else "")
     return None
+
+
+def train_phase(dev) -> dict:
+    """The training path at full width: ``make_train_step`` on
+    ``smollm-360m`` (all 32 layers, bf16 activations, f32 master weights,
+    ``use_flash_kernel``, ``remat=True``) at ``CHIP_TRAIN_*``, weights from
+    a seeded ``torch.Generator`` and ``TokenPipeline`` batches. Checks the
+    launches (64 ``sm90`` flash launches a step: the forward and the remat
+    recompute), the kernel against its plain version swapped into
+    ``kops.flash_attention_fwd`` (full depth in bf16; 4 layers in f32 on the
+    simple design), ``microbatches=2``, a ``Trainer`` killed and resumed at
+    SMOKE size (bit-equal under ``torch.use_deterministic_algorithms``) and
+    the CLI; then times steps and profiles one. Returns the readings for the
+    ``flash_attention_fwd`` row (``launches``: the counted step's)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import smollm_360m as lm_sizes
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import Model
+    from repro_torch.train import (OptConfig, TrainConfig, Trainer,
+                                   TrainerConfig, init_opt_state,
+                                   make_train_step)
+    from repro_torch.train.optimizer import _leaves
+
+    t0 = time.perf_counter()
+    sync = torch.cuda.synchronize
+    cfg = dataclasses.replace(lm_sizes.CONFIG, use_flash_kernel=True)
+    B, S = lm_sizes.CHIP_TRAIN_BATCH, lm_sizes.CHIP_TRAIN_SEQ
+    base_mem = torch.cuda.memory_allocated()
+    model = Model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0)).requires_grad_()
+    params = model.params()
+    init = [p.detach().clone() for p in _leaves(params)]
+    opt = OptConfig(warmup_steps=1, total_steps=10)
+
+    def batch_of(pipe, step):
+        return {k: torch.from_numpy(v).to(dev)
+                for k, v in pipe.batch_at(step).items()}
+
+    pipe = TokenPipeline(vocab=cfg.vocab, batch=B, seq=S, seed=0)
+    batch = batch_of(pipe, 0)
+    kernel_fwd = kops.flash_attention_fwd
+
+    def plain_fwd(q, k, v, *, causal, block_q, block_k, schedule):
+        return ref.flash_attention_ref(q, k, v, causal=causal)
+
+    def fresh_step(microbatches=1, fwd=kernel_fwd):
+        """One step from the seeded weights and a zero optimizer state,
+        with ``fwd`` in ``kops.flash_attention_fwd``: its metrics."""
+        with torch.no_grad():
+            for p, w in zip(_leaves(params), init):
+                p.copy_(w)
+        step = make_train_step(model, TrainConfig(opt=opt,
+                                                  microbatches=microbatches))
+        kops.flash_attention_fwd = fwd
+        try:
+            _, _, m = step(params, init_opt_state(params), batch)
+        finally:
+            kops.flash_attention_fwd = kernel_fwd
+        return {k: float(v) for k, v in m.items()}
+
+    # one counted step, then the same step again (is it bit-repeatable?)
+    _build.reset_launches()
+    got = fresh_step()
+    sync()
+    counts = dict(_build.LAUNCHES)
+    by_design = dict(_build.FLASH_DESIGN_LAUNCHES)
+    n_flash = 2 * cfg.n_layers
+    check(counts == {**{n: 0 for n in counts}, "flash_attention_fwd": n_flash},
+          f"train step launches {counts}, want {n_flash} flash_attention_fwd")
+    check(by_design == {"sm90": n_flash, "simple": 0},
+          f"train step flash launches by design {by_design}, want all sm90")
+    check(all(math.isfinite(x) for x in got.values()), f"train step metrics {got}")
+    again = fresh_step()
+    repeat = got == again
+    # the kernel against its plain version: full depth in bf16
+    plain = fresh_step(fwd=plain_fwd)
+    loss_rel = abs(got["loss"] - plain["loss"]) / abs(plain["loss"])
+    gn_rel = abs(got["grad_norm"] - plain["grad_norm"]) / plain["grad_norm"]
+    check(loss_rel <= TRAIN_BF16_LOSS_RTOL,
+          f"bf16 train step loss {got['loss']} vs plain {plain['loss']}")
+    check(gn_rel <= TRAIN_BF16_GNORM_RTOL,
+          f"bf16 train step grad norm {got['grad_norm']} vs plain {plain['grad_norm']}")
+    micro = fresh_step(microbatches=2)
+    micro_rel = abs(micro["loss"] - got["loss"]) / abs(got["loss"])
+    check(micro_rel <= TRAIN_BF16_LOSS_RTOL,
+          f"microbatches=2 loss {micro['loss']} vs {got['loss']}")
+    log(f"train {cfg.name} B={B} S={S}, {cfg.n_layers} layers, bf16, remat: step launches "
+        f"{counts['flash_attention_fwd']} flash_attention_fwd (by design "
+        f"{by_design}); loss {got['loss']:.6f}, grad norm "
+        f"{got['grad_norm']:.6f}; repeated step bit-equal: {repeat}; plain "
+        f"version: loss {plain['loss']:.6f} (rel {loss_rel:.3g}), grad norm "
+        f"{plain['grad_norm']:.6f} (rel {gn_rel:.3g}); microbatches=2 loss "
+        f"{micro['loss']:.6f} (rel {micro_rel:.3g})")
+
+    # 4 layers in f32 activations (the simple design): loss and every
+    # gradient leaf of the kernel's step against the plain version's
+    cfg32 = dataclasses.replace(cfg, activation_dtype="float32",
+                                n_layers=lm_sizes.CHIP_TRAIN_F32_LAYERS)
+    m32 = Model(cfg32, device=dev).init(
+        torch.Generator(device=dev).manual_seed(1)).requires_grad_()
+    b32 = batch_of(TokenPipeline(vocab=cfg.vocab,
+                                 batch=lm_sizes.CHIP_TRAIN_F32_BATCH,
+                                 seq=lm_sizes.CHIP_TRAIN_F32_SEQ, seed=1), 0)
+    leaves32 = _leaves(m32.params())
+
+    def grads32(fwd):
+        kops.flash_attention_fwd = fwd
+        try:
+            loss, _ = m32.loss(b32, remat=True)
+            return loss.item(), torch.autograd.grad(loss, leaves32)
+        finally:
+            kops.flash_attention_fwd = kernel_fwd
+
+    _build.reset_launches()
+    l_k, g_k = grads32(kernel_fwd)
+    sync()
+    by_design = dict(_build.FLASH_DESIGN_LAUNCHES)
+    check(by_design == {"sm90": 0, "simple": 2 * cfg32.n_layers},
+          f"f32 train launches by design {by_design}, want all simple")
+    l_p, g_p = grads32(plain_fwd)
+    f32_loss_rel = abs(l_k - l_p) / abs(l_p)
+    f32_grad_rel = max(((a - b).norm() / b.norm()).item() for a, b in zip(g_k, g_p))
+    check(f32_loss_rel <= TRAIN_F32_LOSS_RTOL, f"f32 loss {l_k} vs plain {l_p}")
+    check(f32_grad_rel <= TRAIN_F32_GRAD_RTOL,
+          f"f32 gradients: largest relative L2 error {f32_grad_rel}")
+    log(f"train {cfg32.n_layers} layers f32 B={b32['tokens'].shape[0]} "
+        f"S={b32['tokens'].shape[1]}: {by_design['simple']} simple flash "
+        f"launches; loss {l_k:.7f} vs plain {l_p:.7f} (rel {f32_loss_rel:.3g}); "
+        f"largest relative L2 error of a gradient leaf {f32_grad_rel:.3g} "
+        f"over {len(g_k)} leaves")
+    del m32, g_k, g_p, leaves32
+
+    # a Trainer at SMOKE size killed after a checkpoint and resumed: equal
+    # to the unbroken run, bit for bit, with deterministic algorithms on
+    smoke = dataclasses.replace(lm_sizes.SMOKE, use_flash_kernel=True)
+    n_steps, kill = lm_sizes.CHIP_TRAIN_RESUME_STEPS, lm_sizes.CHIP_TRAIN_RESUME_KILL
+    tmp = tempfile.mkdtemp()
+    try:
+        def trainer(steps, where):
+            return Trainer(Model(smoke, device=dev),
+                           TokenPipeline(vocab=smoke.vocab, batch=4, seq=64),
+                           TrainerConfig(total_steps=steps, ckpt_every=kill,
+                                         ckpt_dir=os.path.join(tmp, where),
+                                         log_every=1,
+                                         train=TrainConfig(opt=opt)))
+
+        # torch refuses cuBLAS under deterministic algorithms unless this
+        # names a fixed workspace; 8 buffers of 4 MiB is already the H100's
+        # default, so nothing else changes
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True)
+        try:
+            p_full, _, log_full = trainer(n_steps, "full").run(resume=False)
+            trainer(kill, "killed").run(resume=False)
+            p_res, _, log_res = trainer(n_steps, "killed").run(resume=True)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        sync()
+        same = all(torch.equal(a, b) for a, b in zip(_leaves(p_full), _leaves(p_res)))
+        worst = max(((a - b).abs().max() / b.abs().max()).item()
+                    for a, b in zip(_leaves(p_full), _leaves(p_res)))
+        check([m["loss"] for m in log_res] == [m["loss"] for m in log_full[kill:]],
+              "resumed losses differ from the unbroken run's")
+        check(same, f"resumed params differ from the unbroken run's (largest "
+                    f"relative difference {worst})")
+        log(f"train {smoke.name} Trainer, {n_steps} steps killed after the "
+            f"checkpoint at {kill} and resumed: params bit-equal to the "
+            f"unbroken run (deterministic algorithms on)")
+        # the CLI on the card, as a user runs it
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             "smollm-360m", "--smoke", "--steps", "3", "--batch", "2", "--seq",
+             "32", "--device", dev.type, "--ckpt-dir", os.path.join(tmp, "cli")],
+            capture_output=True, text=True, timeout=600, cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        check(r.returncode == 0 and "[trainer] step 0 loss" in r.stdout,
+              f"train CLI rc {r.returncode}: {r.stdout[-2000:]} {r.stderr[-2000:]}")
+        log(f"train CLI --smoke --steps 3 --device {dev.type}: "
+            + " | ".join(ln for ln in r.stdout.splitlines() if ln.startswith("[")))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # timing: ms per step (median of 3 after a warm-up), peak memory
+    with torch.no_grad():
+        for p, w in zip(_leaves(params), init):
+            p.copy_(w)
+    del init
+    step = make_train_step(model, TrainConfig(opt=opt))
+    state = init_opt_state(params)
+    batches = [batch_of(pipe, i) for i in range(4)]
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for i, b in enumerate(batches):
+        t1 = time.perf_counter()
+        _, state, m = step(params, state, b)
+        float(m["loss"])
+        sync()
+        walls.append(1e3 * (time.perf_counter() - t1))
+    ms = statistics.median(walls[1:])
+    peak = torch.cuda.max_memory_allocated() - base_mem
+
+    # one profiled step: where the device's time goes
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        _, state, m = step(params, state, batches[0])
+        float(m["loss"])
+        sync()
+        wall = 1e3 * (time.perf_counter() - t1)
+    # the step's record_function ranges also appear on the device's
+    # timeline (as annotations spanning their kernels): kernels only here
+    ranges = ("loss_and_grads", "adamw_update", "flash_attention_bwd_recompute")
+    by_name = {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0 \
+                and e.key not in ranges:
+            by_name[e.key] = e.self_device_time_total / 1e3
+    gemm = re.compile(r"gemm|nvjet|xmma|cutlass", re.I)
+
+    def kernels_under(ev):
+        yield from ev.kernels
+        for ch in ev.cpu_children:
+            yield from kernels_under(ch)
+
+    def range_ms(name, pick=lambda k: True):
+        return sum(k.duration for e in prof.events() if e.name == name
+                   for k in kernels_under(e) if pick(k.name)) / 1e3
+
+    is_gemm = lambda n: bool(gemm.search(n)) and "flash" not in n
+    shares = {}
+    if by_name:
+        busy = sum(by_name.values())
+        shares = dict(
+            busy_ms=busy, wall_ms=wall,
+            flash_fwd_ms=sum(v for k, v in by_name.items() if "flash_fwd" in k),
+            recompute_ms=range_ms("flash_attention_bwd_recompute"),
+            recompute_gemm_ms=range_ms("flash_attention_bwd_recompute", is_gemm),
+            gemm_ms=sum(v for k, v in by_name.items() if is_gemm(k)),
+            adamw_ms=range_ms("adamw_update"))
+        # the kernel at the step's shape (BH=60, S=4096, D=64) against the
+        # bound of its operations at the bf16 peak
+        qbh, hd = B * cfg.n_heads, cfg.hd
+        shares.update(flash_launch_ms=shares["flash_fwd_ms"] / n_flash,
+                      flash_bound_ms=1e3 * 4 * hd * qbh * S * (S + 1) / 2
+                      / BF16_FLOP_PER_S)
+        log(f"profile train step, profiler on: wall {wall:.3f} ms, device busy "
+            f"{busy:.3f} ms ({100 * busy / wall:.1f}%); flash_attention_fwd "
+            f"{shares['flash_fwd_ms']:.3f} ms ({100 * shares['flash_fwd_ms'] / busy:.1f}%), "
+            f"attention backward recompute {shares['recompute_ms']:.3f} ms "
+            f"({100 * shares['recompute_ms'] / busy:.1f}%, of it GEMMs "
+            f"{shares['recompute_gemm_ms']:.3f}), GEMMs in all "
+            f"{shares['gemm_ms']:.3f} ms ({100 * shares['gemm_ms'] / busy:.1f}%; "
+            f"outside the recompute {shares['gemm_ms'] - shares['recompute_gemm_ms']:.3f}), "
+            f"AdamW {shares['adamw_ms']:.3f} ms; flash_attention_fwd "
+            f"{shares['flash_launch_ms']:.4f} ms a launch at BH={qbh}, S={S} "
+            f"against a bound of {shares['flash_bound_ms']:.4f} ms")
+        for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+            log(f"  {t:.3f} ms  {name[:100]}")
+    else:
+        log("profile train step: the profiler recorded no device time (not measured)")
+    # the kernel alone at the step's shape (the folded q, k, v of one
+    # layer), beside its plain version and SDPA, with CUDA events
+    def events_ms(fn, reps=5, inner=5):
+        fn()
+        sync()
+        times = []
+        for _ in range(reps):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            for _ in range(inner):
+                fn()
+            e1.record()
+            sync()
+            times.append(e0.elapsed_time(e1) / inner)
+        return statistics.median(times)
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    fq, fk, fv = (torch.randn((B * cfg.n_heads, S, cfg.hd), generator=gen,
+                              device=dev, dtype=torch.bfloat16) for _ in range(3))
+    blk = 128  # gqa_attention's blocks
+    flash_at_s = dict(
+        kernel_ms=events_ms(lambda: kops.flash_attention_fwd(
+            fq, fk, fv, causal=True, block_q=blk, block_k=blk,
+            schedule=cfg.flash_schedule)),
+        plain_ms=events_ms(lambda: ref.flash_attention_ref(fq, fk, fv), reps=3,
+                           inner=1),
+        library_ms=events_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            *(t.view(B, cfg.n_heads, S, cfg.hd) for t in (fq, fk, fv)),
+            is_causal=True)),
+        bound_ms=1e3 * 4 * cfg.hd * B * cfg.n_heads * S * (S + 1) / 2
+        / BF16_FLOP_PER_S)
+    del fq, fk, fv
+    log(f"flash_attention_fwd at the train step's shape ({B * cfg.n_heads}, "
+        f"{S}, {cfg.hd}) bf16 causal, Hopper design: "
+        f"{flash_at_s['kernel_ms']:.4f} ms; plain {flash_at_s['plain_ms']:.3f} ms; "
+        f"SDPA {flash_at_s['library_ms']:.4f} ms; bound "
+        f"{flash_at_s['bound_ms']:.4f} ms by operations")
+    log(f"train {cfg.name} B={B} S={S}: {ms:.3f} ms per step (median of 3 "
+        f"after a warm-up; {', '.join(f'{w:.1f}' for w in walls)} ms), "
+        f"{B * S / ms * 1e3:.0f} tokens/s; peak memory {peak / 2**30:.2f} GiB "
+        f"above the {base_mem / 2**30:.2f} GiB held before the phase "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return dict(launches=counts["flash_attention_fwd"], training=dict(
+        launches_per_step=n_flash, by_design={"sm90": n_flash, "simple": 0},
+        batch=B, seq=S, ms_per_step=ms, tokens_per_s=B * S / ms * 1e3,
+        peak_bytes=peak, loss=got["loss"], grad_norm=got["grad_norm"],
+        repeat_bit_equal=repeat, plain_loss_rel=loss_rel, plain_gnorm_rel=gn_rel,
+        microbatch2_loss_rel=micro_rel, f32_loss_rel=f32_loss_rel,
+        f32_grad_rel_l2=f32_grad_rel, resume_bit_equal=same,
+        flash_at_train_shape=flash_at_s, profile=shares))
 
 
 def main() -> int:
@@ -2354,6 +2696,14 @@ def main() -> int:
             f"({100 * fa_ms / sum(by_name.values()):.1f}%)")
     profiled(lambda: greedy_decode(lm, prompts, N_D, P_D + N_D + 1),
              f"{lm_cfg.name} greedy_decode {B_D}x{N_D}", top=6)
+
+    # the training path (its own launches counted, added to the kernel's)
+    del lm
+    torch.cuda.empty_cache()
+    tr = train_phase(dev)
+    flash_row = next(k for k in kernels if k["name"] == "flash_attention_fwd")
+    flash_row["launches"] += tr["launches"]
+    flash_row["training"] = tr["training"]
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

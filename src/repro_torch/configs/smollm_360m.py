@@ -27,3 +27,13 @@ SMOKE = ModelConfig(
 CHIP_PREFILL_BATCH, CHIP_PREFILL_SEQ = 4, 2048
 CHIP_LONG_SEQ = 32768
 CHIP_DECODE_BATCH, CHIP_PROMPT_LEN, CHIP_NEW_TOKENS = 4, 16, 32
+
+# The size chip_smoke.py trains at full width: the train_4k cell (S=4096
+# at a global batch of 256, configs/registry.py) cut in batch only, to B=4
+# sequences on one card; every width and all 32 layers kept, bf16
+# activations and f32 master weights as CONFIG has them. Its plain-version
+# check runs 4 layers in f32 activations at B=1, S=2048 (the simple flash
+# design), and its kill/resume check the SMOKE config for 4 steps.
+CHIP_TRAIN_BATCH, CHIP_TRAIN_SEQ = 4, 4096
+CHIP_TRAIN_F32_LAYERS, CHIP_TRAIN_F32_BATCH, CHIP_TRAIN_F32_SEQ = 4, 1, 2048
+CHIP_TRAIN_RESUME_STEPS, CHIP_TRAIN_RESUME_KILL = 4, 2

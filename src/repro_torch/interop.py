@@ -5,7 +5,8 @@ arrays: a test makes its inputs with numpy and hands the same arrays to
 both. These helpers check what they are given and put it on a device.
 A language model's weights cross the same way: JAX's random streams
 cannot be reproduced in torch, so ``lm_params_from_numpy`` takes the JAX
-parameter tree as numpy arrays.
+parameter tree as numpy arrays, and ``opt_state_from_numpy`` its AdamW
+state.
 """
 
 from __future__ import annotations
@@ -17,12 +18,14 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.params import _leaf_paths
+from repro_torch.models.params import _leaf_paths, _unflatten
+from repro_torch.models.transformer import model_defs
 from repro_torch.models.zoo import Model
 from repro_torch.stencil.gol3d import Gol3d, Gol3dConfig
 
-__all__ = ["from_reference_state", "lm_params_from_numpy", "store_from_numpy",
-           "store_to_numpy", "weights_from_numpy"]
+__all__ = ["from_reference_state", "lm_params_from_numpy", "load_lm_params",
+           "opt_state_from_numpy", "store_from_numpy", "store_to_numpy",
+           "weights_from_numpy"]
 
 
 def from_reference_state(state_path: np.ndarray, cfg: Gol3dConfig,
@@ -74,26 +77,64 @@ def _numpy_leaves(tree, prefix=()):
         yield from _numpy_leaves(tree[k], prefix + (k,))
 
 
+def _checked_leaves(tree: dict, defs, dtype: np.dtype, what: str) -> dict:
+    """``tree``'s leaves as numpy arrays by path, after checking that every
+    path, shape and dtype matches the ParamDef tree ``defs``, with no leaf
+    missing or left over."""
+    want = {path: d for path, d in _leaf_paths(defs)}
+    got = {path: np.asarray(a) for path, a in _numpy_leaves(tree)}
+    if set(got) != set(want):
+        missing = sorted("/".join(p) for p in set(want) - set(got))
+        extra = sorted("/".join(p) for p in set(got) - set(want))
+        raise ValueError(f"{what} does not match: missing {missing}, "
+                         f"unexpected {extra}")
+    for path, d in want.items():
+        arr = got[path]
+        if arr.shape != tuple(d.shape) or arr.dtype != dtype:
+            raise ValueError(f"{'/'.join(path)}: want {tuple(d.shape)} {dtype}, "
+                             f"got {arr.shape} {arr.dtype}")
+    return got
+
+
+def load_lm_params(model: Model, tree: dict) -> Model:
+    """Copy ``tree``, a JAX parameter tree as numpy arrays, into ``model``'s
+    parameters (checked as :func:`lm_params_from_numpy` checks it)."""
+    got = _checked_leaves(tree, model.defs(), np.dtype(model.cfg.param_dtype),
+                          f"parameter tree of {model.cfg.name}")
+    params = dict(model.named_parameters())
+    with torch.no_grad():
+        for path, arr in got.items():
+            params[".".join(path)].copy_(torch.from_numpy(arr))
+    return model
+
+
 def lm_params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> Model:
     """A :class:`Model` of ``cfg`` on ``device`` holding the weights of
     ``tree``, a JAX parameter tree as numpy arrays (e.g.
     ``jax.tree.map(np.asarray, params)``). Every path, shape and dtype
     (``cfg.param_dtype``) must match the port's ParamDef tree, with no leaf
     missing or left over."""
-    model = Model(cfg, device=device)
-    want = {path: d for path, d in _leaf_paths(model.defs())}
-    got = {path: np.asarray(a) for path, a in _numpy_leaves(tree)}
-    if set(got) != set(want):
-        missing = sorted("/".join(p) for p in set(want) - set(got))
-        extra = sorted("/".join(p) for p in set(got) - set(want))
-        raise ValueError(f"parameter tree does not match {cfg.name}: "
-                         f"missing {missing}, unexpected {extra}")
-    params = dict(model.named_parameters())
-    dtype = np.dtype(cfg.param_dtype)
-    for path, d in want.items():
-        arr = got[path]
-        if arr.shape != tuple(d.shape) or arr.dtype != dtype:
-            raise ValueError(f"{'/'.join(path)}: want {tuple(d.shape)} {dtype}, "
-                             f"got {arr.shape} {arr.dtype}")
-        params[".".join(path)].data.copy_(torch.from_numpy(arr))
-    return model
+    return load_lm_params(Model(cfg, device=device), tree)
+
+
+def opt_state_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
+    """The AdamW state of ``train.optimizer`` on ``device`` from ``tree``, a
+    JAX optimizer state as numpy arrays: ``m`` and ``v`` with the paths
+    and shapes of ``cfg``'s parameter tree, each leaf float32, and
+    ``step`` an int32 scalar."""
+    if not isinstance(tree, dict) or set(tree) != {"m", "v", "step"}:
+        raise ValueError("an optimizer state is {'m', 'v', 'step'}, got "
+                         f"{sorted(tree) if isinstance(tree, dict) else type(tree)}")
+    dev = resolve_device(device)
+    defs = model_defs(cfg)
+    out = {}
+    for name in ("m", "v"):
+        got = _checked_leaves(tree[name], defs, np.dtype(np.float32),
+                              f"optimizer state {name!r} of {cfg.name}")
+        out[name] = _unflatten({path: torch.from_numpy(arr.copy()).to(dev)
+                                for path, arr in got.items()})
+    step = np.asarray(tree["step"])
+    if step.shape != () or step.dtype != np.int32:
+        raise ValueError(f"step: want () int32, got {step.shape} {step.dtype}")
+    out["step"] = torch.from_numpy(step.copy()).to(dev)
+    return out

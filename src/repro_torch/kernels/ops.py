@@ -8,7 +8,8 @@ on CUDA the tap sum runs through the ``stencil_sum_blocks`` kernel, the
 gather through the ``gather_rows`` kernel and attention through the
 ``flash_attention_fwd`` kernel; on the CPU through their plain versions
 (the gather is then ``index_select`` along the last axis). The rule and the
-element selection after the row gather run as torch code on both.
+element selection after the row gather run as torch code on both, and so
+does attention's backward, a recompute through the dense oracle.
 """
 
 from __future__ import annotations
@@ -194,13 +195,14 @@ def unpack_surface(data_path: torch.Tensor, buf: torch.Tensor,
 
 
 # ----------------------------------------------------------------------
-# Flash attention public API (GQA folding), forward only
+# Flash attention public API (GQA folding + trainable autograd.Function)
 # ----------------------------------------------------------------------
 
 def _fold_gqa(q, k, v):
     """(B,Hq,S,D)/(B,Hkv,S,D) -> (B*Hq, S, D) with kv repeated per group:
     query head h reads kv head h // (Hq/Hkv), as ``jnp.repeat`` along the
-    heads gives (``Tensor.repeat`` would tile instead)."""
+    heads gives (``Tensor.repeat`` would tile instead). The backward of
+    ``repeat_interleave`` sums each group's gradients into its kv head."""
     B, Hq, Sq, D = q.shape
     Hkv = k.shape[1]
     assert Hq % Hkv == 0, (Hq, Hkv)
@@ -218,25 +220,47 @@ def _pick_block(s: int, pref: int) -> int:
     return max(b, 1)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """The JAX package's ``custom_vjp`` of ``flash_attention``: the forward
+    launches ``flash_attention_fwd`` and saves (q, k, v); the backward
+    recomputes the dense oracle (``ref.attention_ref``) on them and takes
+    its vector-Jacobian product. The kernel stays forward only, as on the
+    TPU; the recompute is plain torch arithmetic on the tensors' device."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, schedule, block_q, block_k):
+        B, Hq, Sq, D = q.shape
+        qf, kf, vf = _fold_gqa(q, k, v)
+        bq = _pick_block(Sq, block_q)
+        bk = _pick_block(kf.shape[1], block_k)
+        o = flash_attention_fwd(qf, kf, vf, causal=causal, block_q=bq,
+                                block_k=bk, schedule=schedule)
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return o.reshape(B, Hq, Sq, D)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        q, k, v = ctx.saved_tensors
+        with torch.profiler.record_function("flash_attention_bwd_recompute"), \
+                torch.enable_grad():
+            q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+            B, Hq, Sq, D = q.shape
+            o = ref.attention_ref(*_fold_gqa(q, k, v), causal=ctx.causal)
+            dq, dk, dv = torch.autograd.grad(o.reshape(B, Hq, Sq, D), (q, k, v),
+                                             g_out)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q, k, v, causal: bool = True, schedule: str = "morton",
                     block_q: int = 64, block_k: int = 64) -> torch.Tensor:
-    """Flash attention forward. q: (B,Hq,S,D); k,v: (B,Hkv,Sk,D).
+    """Trainable flash attention. q: (B,Hq,S,D); k,v: (B,Hkv,Sk,D).
 
-    Folds GQA into the batch axis and runs the SFC-scheduled
+    The forward folds GQA into the batch axis and runs the SFC-scheduled
     ``flash_attention_fwd`` (the CUDA kernel on the card, its plain
-    version on the CPU). The JAX package's ``custom_vjp`` backward, a
-    recompute through the oracle, comes with the training slice as a
-    ``torch.autograd.Function``; until then a tensor that needs a gradient
-    raises.
+    version on the CPU); the backward recomputes through the dense oracle
+    (the JAX package's recompute backward, which keeps the kernel forward
+    only). Blocks are ``block_q`` and ``block_k`` halved until they
+    divide the sequence.
     """
-    if any(t.requires_grad for t in (q, k, v)) and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "flash_attention is forward only; its backward comes with the "
-            "training slice (ROADMAP.md queue 1, item 12)")
-    B, Hq, Sq, D = q.shape
-    qf, kf, vf = _fold_gqa(q, k, v)
-    bq = _pick_block(Sq, block_q)
-    bk = _pick_block(kf.shape[1], block_k)
-    o = flash_attention_fwd(qf, kf, vf, causal=causal, block_q=bq,
-                            block_k=bk, schedule=schedule)
-    return o.reshape(B, Hq, Sq, D)
+    return _FlashAttention.apply(q, k, v, causal, schedule, block_q, block_k)

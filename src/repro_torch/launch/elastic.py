@@ -45,11 +45,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(a) -> None:
     """Training-mode elastic reshard: not ported (ROADMAP.md queue 1,
-    item 12.4)."""
+    item 12.10: it reshards over a device mesh with partition specs)."""
     raise SystemExit("repro_torch.launch.elastic: the training mode "
-                     "(resharding a language model's parameters) is not "
-                     "ported yet (ROADMAP.md queue 1, item 12.4); run "
-                     "--stencil")
+                     "(resharding a language model's parameters over a "
+                     "device mesh) is not ported yet (ROADMAP.md queue 1, "
+                     "item 12.10); run --stencil")
 
 
 def stencil_main(a) -> None:

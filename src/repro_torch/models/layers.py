@@ -1,9 +1,10 @@
-"""Shared neural layers: RMSNorm, RoPE, SwiGLU MLP, embeddings, masks.
+"""Shared neural layers: RMSNorm, RoPE, SwiGLU MLP, embeddings, losses,
+masks.
 
 The torch counterparts of ``repro.models.layers``, with the same dtype
 rules: parameters are cast to the activation dtype at each use, norms,
-RoPE and the SiLU run in f32 and return the input's dtype, and logits are
-f32. ``softmax_cross_entropy`` waits for the training slice.
+RoPE and the SiLU run in f32 and return the input's dtype, and logits and
+the loss are f32.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch.nn.functional as F
 from repro_torch.core.layout import device_constant
 
 __all__ = ["rmsnorm", "rope_freqs", "apply_rope", "swiglu", "embed",
-           "unembed", "causal_window_mask"]
+           "unembed", "softmax_cross_entropy", "causal_window_mask"]
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -54,12 +55,28 @@ def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def embed(w: torch.Tensor, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    return w[tokens.long()].to(dtype)
+    """Rows of ``w`` (V, D) at ``tokens``, in ``dtype``. ``F.embedding``,
+    not indexing: its backward sums each row's gradients in a fixed order
+    on the CPU, where indexing's accumulating scatter does not."""
+    return F.embedding(tokens.long(), w).to(dtype)
 
 
 def unembed(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Logits in float32 (numerics) — w: (D, V)."""
     return x.float() @ w.float()
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-token CE. logits: (B,S,V) f32; labels: (B,S) int32; with
+    ``mask`` (B,S), the mean over the positions it keeps (at least 1)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - ll
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 def causal_window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,

@@ -5,8 +5,10 @@ family (a GQA decoder LM: smollm, deepseek-coder, phi4, gemma3's
 local:global pattern through per-layer flags). Per-layer parameters are
 stacked on a leading ``layers`` axis, as in the JAX package, so the two
 parameter trees match leaf for leaf; a Python loop over that axis takes
-the place of ``lax.scan``. Nothing here differentiates: training (remat,
-the chunked loss) comes with the training slice.
+the place of ``lax.scan``. Training runs through ``loss_fn``: the layer
+loop under activation checkpointing (``remat``, the JAX package's
+``jax.checkpoint`` around the scanned layer) and the cross-entropy over
+sequence chunks (``_chunked_ce``).
 
 The other families — moe, ssm, hybrid, encdec, vlm — and MLA raise
 :class:`NotImplementedError` naming ROADMAP.md queue 1, item 12.
@@ -14,18 +16,20 @@ The other families — moe, ssm, hybrid, encdec, vlm — and MLA raise
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import numpy as np
 import torch
+import torch.utils.checkpoint as tcp
 
 from . import attention as attn
 from .config import ModelConfig
-from .layers import embed, rmsnorm, swiglu, unembed
+from .layers import embed, rmsnorm, softmax_cross_entropy, swiglu, unembed
 from .params import ParamDef
 
 __all__ = ["model_defs", "forward", "forward_hidden", "prefill",
-           "decode_step", "cache_defs"]
+           "decode_step", "cache_defs", "loss_fn"]
 
 L = "layers"
 _NOT_PORTED = "is not ported yet: ROADMAP.md queue 1, item 12"
@@ -102,9 +106,12 @@ def _layer_flags(cfg: ModelConfig) -> np.ndarray:
                     dtype=np.bool_)
 
 
-def _layer(stacked: dict, i: int) -> dict:
-    """Layer ``i``'s slice of the stacked parameters (views)."""
-    return {k: w[i] for k, w in stacked.items()}
+def _layers(stacked: dict) -> list[dict]:
+    """Every layer's slice of the stacked parameters (views, one unbind
+    per leaf, whose backward stacks the layers' gradients once)."""
+    keys = sorted(stacked)
+    return [dict(zip(keys, ws))
+            for ws in zip(*(stacked[k].unbind(0) for k in keys))]
 
 
 def _attn_layer_train(p, x, cfg: ModelConfig, is_global, pos):
@@ -115,14 +122,50 @@ def _attn_layer_train(p, x, cfg: ModelConfig, is_global, pos):
     return x + swiglu(p, h2)
 
 
-def forward_hidden(params: dict, batch: dict, cfg: ModelConfig):
+# The weight GEMMs of a layer (``x @ w`` on (B,S,D) activations lowers to
+# ``mm``): what ``remat="dots"`` keeps, as the JAX package's
+# ``dots_with_no_batch_dims_saveable`` keeps dots without batch dims (the
+# attention's batched products are recomputed).
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default,)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (tcp.CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_DOTS
+            else tcp.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(layer_fn, remat):
+    """``layer_fn`` under the JAX package's remat modes: True recomputes the
+    whole layer in the backward (``checkpoint``, non-reentrant), "dots"
+    saves the weight GEMMs' outputs and recomputes the rest (a selective
+    checkpoint), False saves everything. Without grad mode there is nothing
+    to save, and the layer runs as it is."""
+    if remat not in (True, False, "dots"):
+        raise ValueError(f"remat must be True, False or 'dots', got {remat!r}")
+    if remat == "dots" and not hasattr(tcp, "create_selective_checkpoint_contexts"):
+        raise NotImplementedError(
+            f"remat='dots' needs torch.utils.checkpoint."
+            f"create_selective_checkpoint_contexts, which torch "
+            f"{torch.__version__} lacks; use remat=True or False")
+    if not remat or not torch.is_grad_enabled():
+        return layer_fn
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            tcp.create_selective_checkpoint_contexts, _dots_policy)
+    return functools.partial(tcp.checkpoint, layer_fn, use_reentrant=False, **kw)
+
+
+def forward_hidden(params: dict, batch: dict, cfg: ModelConfig,
+                   remat: bool | str = True):
     """Full-sequence trunk -> (hidden (B,S,D) after final norm, aux_loss)."""
     check_ported(cfg)
     adt = getattr(torch, cfg.activation_dtype)
     x = embed(params["embed"], batch["tokens"], adt)
     pos = torch.arange(x.shape[1], device=x.device)
-    for i, fl in enumerate(_layer_flags(cfg)):
-        x = _attn_layer_train(_layer(params["layers"], i), x, cfg, bool(fl), pos)
+    layer = _remat(functools.partial(_attn_layer_train, cfg=cfg, pos=pos), remat)
+    for p, fl in zip(_layers(params["layers"]), _layer_flags(cfg)):
+        x = layer(p, x, is_global=bool(fl))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
 
@@ -140,20 +183,54 @@ def _mask_pad(logits, cfg: ModelConfig):
     return torch.where(keep, logits, -1e30)
 
 
-def forward(params: dict, batch: dict, cfg: ModelConfig):
+def forward(params: dict, batch: dict, cfg: ModelConfig,
+            remat: bool | str = True):
     """Full-sequence forward -> (logits f32 (B,S,V), aux_loss).
 
     Materialises the full logits — use only for small configs/tests;
-    prefill uses the last position only.
+    loss_fn and prefill use the chunked/last-position paths.
     """
-    x, aux = forward_hidden(params, batch, cfg)
+    x, aux = forward_hidden(params, batch, cfg, remat)
     return _mask_pad(unembed(_unembed_w(params, cfg), x), cfg), aux
 
 
 def prefill(params: dict, batch: dict, cfg: ModelConfig):
     """Inference prefill: trunk + LAST-position logits only (B,V)."""
-    x, _ = forward_hidden(params, batch, cfg)
+    x, _ = forward_hidden(params, batch, cfg, remat=False)
     return _mask_pad(unembed(_unembed_w(params, cfg), x[:, -1]), cfg)
+
+
+def _chunked_ce(hidden, w_un, labels, mask, cfg, chunk: int = 512):
+    """CE without materialising (B,S,V): a loop over sequence chunks, each
+    chunk's logits summed into the total as the JAX package's scan sums
+    them. A sequence that is not a multiple of ``chunk`` takes the full
+    logits, as there."""
+    S = hidden.shape[1]
+    if S % chunk:
+        logits = _mask_pad(unembed(w_un, hidden), cfg)
+        return softmax_cross_entropy(logits, labels, mask)
+    mk = (torch.ones(labels.shape, dtype=torch.float32, device=hidden.device)
+          if mask is None else mask.float())
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, S, chunk):
+        logits = _mask_pad(unembed(w_un, hidden[:, i:i + chunk]), cfg)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1,
+                          labels[:, i:i + chunk, None].long())[..., 0]
+        mc = mk[:, i:i + chunk]
+        tot = tot + ((lse - ll) * mc).sum()
+        cnt = cnt + mc.sum()
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def loss_fn(params, batch, cfg: ModelConfig, remat: bool | str = True):
+    """(ce + aux, (ce, aux)): the mean next-token cross-entropy over
+    ``batch["labels"]`` (kept positions only with ``batch["loss_mask"]``)."""
+    hidden, aux = forward_hidden(params, batch, cfg, remat)
+    ce = _chunked_ce(hidden, _unembed_w(params, cfg), batch["labels"],
+                     batch.get("loss_mask"), cfg)
+    return ce + aux, (ce, aux)
 
 
 # ======================================================================
@@ -188,9 +265,8 @@ def decode_step(params: dict, cache: dict, batch: dict, cfg: ModelConfig):
     cur = int(batch["cur"])
     x = embed(params["embed"], batch["tokens"], adt)
     layers = cache["layers"]
-    for i, fl in enumerate(_layer_flags(cfg)):
+    for i, (p, fl) in enumerate(zip(_layers(params["layers"]), _layer_flags(cfg))):
         cl = {"k": layers["k"][i], "v": layers["v"][i]}
-        x, _ = _attn_layer_decode(_layer(params["layers"], i), x, cl, cur, cfg,
-                                  bool(fl))
+        x, _ = _attn_layer_decode(p, x, cl, cur, cfg, bool(fl))
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return _mask_pad(unembed(_unembed_w(params, cfg), x), cfg), cache

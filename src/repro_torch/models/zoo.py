@@ -5,8 +5,10 @@ the leaves of the ``ParamDef`` tree (``transformer.model_defs``), stacked
 on the leading layers axis as in the JAX package and named by their
 paths (``layers.wq``, ``embed``, ...), so a JAX parameter tree maps onto
 it leaf for leaf (``interop.lm_params_from_numpy``). The weights live in
-the module, so the methods take no ``params`` argument. Serving only: the
-parameters do not require gradients.
+the module, so the methods take no ``params`` argument. The parameters do
+not require gradients until the caller asks (``requires_grad_()``, as on
+any module, which the trainer does); the serving methods run under
+``torch.no_grad`` either way.
 """
 
 from __future__ import annotations
@@ -72,6 +74,18 @@ class Model(nn.Module):
 
     def n_params(self) -> int:
         return count_params(self.defs())
+
+    def n_active_params(self) -> int:
+        """Active params per token for 6ND model flops: every parameter of a
+        dense model (the JAX package's MoE discount comes with the MoE
+        family, ROADMAP.md queue 1, item 12)."""
+        return self.n_params()
+
+    # ---- training
+    def loss(self, batch: dict, remat: bool | str = True):
+        """(ce + aux, (ce, aux)) of ``batch`` (``transformer.loss_fn``),
+        differentiable in the parameters that require gradients."""
+        return tfm.loss_fn(self.params(), batch, self.cfg, remat)
 
     # ---- inference
     @torch.no_grad()

@@ -855,10 +855,175 @@ def _recipe_serve_cli() -> dict[str, np.ndarray]:
     return res
 
 
+# ------------------------------------------------------------ training
+# The training slice on the CPU, f32 activations throughout: the seeded
+# inputs and configurations that tests/test_torch_train.py hands to both
+# packages, and the recipe that runs the JAX package's side.
+
+TRAIN_SEED = 9
+# ops.flash_attention's gradients: (S, GQA rep, causal) at B=2, Hkv=2,
+# D=16, 128-blocks halved until they divide S (S=100 takes one block)
+FLASH_GRAD_CASES = tuple((S, rep, causal) for S in (32, 100) for rep in (1, 2)
+                         for causal in (True, False))
+# loss_fn and its gradients: (config of lm_configs, S, with a loss_mask) at
+# B=2; S=1024 takes the chunked cross-entropy, S=32 the full logits
+LOSS_CASES = tuple((name, S, masked) for name in ("smoke", "tiny")
+                   for S in (1024, 32) for masked in (False, True))
+LOSS_B = 2
+# one adamw_update: (opt_state step, gradient scale): clipped at step 0,
+# unclipped in the warmup's cosine, past total_steps
+ADAMW_CASES = ((0, 10.0), (3, 0.01), (12, 1.0))
+ADAMW_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
+# three make_train_step steps of the tiny config (flash path on)
+STEP_PIPE = dict(batch=4, seq=32, seed=3)
+STEP_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
+TRAIN_STEPS = 3
+# TokenPipeline.batch_at: (seed, step) at vocab 512, batch 3, seq 40
+PIPE_CASES = ((0, 0), (1, 7), (5, 123))
+PIPE_SHAPE = dict(vocab=512, batch=3, seq=40)
+# the Trainers killed at TRAINER_KILL and resumed to TRAINER_STEPS (the
+# model of tests/test_checkpoint.py with the flash path on)
+TRAINER_CFG = dict(name="t", family="dense", n_layers=2, d_model=64, n_heads=4,
+                   n_kv_heads=2, d_ff=128, vocab=128, activation_dtype="float32",
+                   use_flash_kernel=True)
+TRAINER_PIPE = dict(vocab=128, batch=4, seq=16, seed=0)
+TRAINER_OPT = dict(warmup_steps=2, total_steps=6)
+TRAINER_KILL, TRAINER_STEPS = 3, 6
+
+
+def flash_grad_inputs(case) -> tuple[np.ndarray, ...]:
+    """q (2, 2·rep, S, 16), k and v (2, 2, S, 16) and the output's
+    cotangent, f32 normals."""
+    S, rep, causal = case
+    rng = np.random.default_rng(S + 10 * rep + int(causal))
+    return (rng.normal(size=(2, 2 * rep, S, 16)).astype(np.float32),
+            rng.normal(size=(2, 2, S, 16)).astype(np.float32),
+            rng.normal(size=(2, 2, S, 16)).astype(np.float32),
+            rng.normal(size=(2, 2 * rep, S, 16)).astype(np.float32))
+
+
+def loss_batch(vocab: int, S: int, masked: bool) -> dict[str, np.ndarray]:
+    rng = np.random.default_rng(S + int(masked))
+    b = {"tokens": rng.integers(0, vocab, (LOSS_B, S), dtype=np.int32),
+         "labels": rng.integers(0, vocab, (LOSS_B, S), dtype=np.int32)}
+    if masked:
+        b["loss_mask"] = (rng.random((LOSS_B, S)) < 0.7).astype(np.float32)
+    return b
+
+
+def adamw_inputs(case):
+    """(params, grads, opt_state) as numpy trees: matrices, a stacked norm
+    and a vector (decayed by ndim >= 2, as the JAX package decays)."""
+    step, scale = case
+    rng = np.random.default_rng(100 + step)
+    shapes = {"w": (6, 5), "layers": {"norm": (2, 5), "wq": (2, 5, 4)},
+              "bias": (7,)}
+
+    def draw(f):
+        return {k: {kk: f(vv) for kk, vv in v.items()} if isinstance(v, dict)
+                else f(v) for k, v in shapes.items()}
+
+    normal = lambda shp: rng.normal(size=shp).astype(np.float32)
+    params = draw(normal)
+    grads = draw(lambda shp: (scale * rng.normal(size=shp)).astype(np.float32))
+    m = draw(lambda shp: (0.1 * rng.normal(size=shp)).astype(np.float32))
+    v = draw(lambda shp: (0.01 * rng.random(size=shp)).astype(np.float32))
+    return params, grads, {"m": m, "v": v, "step": np.asarray(step, np.int32)}
+
+
+def put_tree(res: dict, prefix: str, tree) -> None:
+    """Every leaf of a JAX or numpy tree into ``res`` under
+    ``prefix/<path>``."""
+    import jax
+
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        res[prefix + "/" + "/".join(p.key for p in path)] = np.asarray(leaf)
+
+
+def _recipe_train() -> dict[str, np.ndarray]:
+    """The JAX package's training slice: flash_attention's gradients, loss_fn
+    and its gradients, one adamw_update, three train steps, the token
+    pipeline, and Trainers that write and resume checkpoints in the
+    recipe's directory (the torch package's killed run is in
+    ``port_kill`` before the recipe runs)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.data import TokenPipeline
+    from repro.kernels import ops
+    from repro.models import build_model
+    from repro.models.config import ModelConfig
+    from repro.train import OptConfig, TrainConfig, Trainer, TrainerConfig
+    from repro.train.optimizer import adamw_update, init_opt_state
+    from repro.train.train_step import make_train_step
+
+    work = Path(sys.argv[2]).parent
+    res = {}
+    for case in FLASH_GRAD_CASES:
+        q, k, v, g = (jnp.asarray(a) for a in flash_grad_inputs(case))
+        o, vjp = jax.vjp(lambda q, k, v: ops.flash_attention(
+            q, k, v, case[2], "morton", 128, 128), q, k, v)
+        res[f"flash/{case}/o"] = np.asarray(o)
+        for name, d in zip("qkv", vjp(g)):
+            res[f"flash/{case}/d{name}"] = np.asarray(d)
+    cfgs = lm_configs("repro")
+    for name in ("smoke", "tiny"):
+        m = build_model(cfgs[name])
+        params = m.init(jax.random.PRNGKey(TRAIN_SEED))
+        put_tree(res, f"params/{name}", params)
+        grad_fn = jax.value_and_grad(
+            lambda p, b: m.loss(p, b, remat=True)[0])
+        for case in LOSS_CASES:
+            if case[0] != name:
+                continue
+            batch = {k: jnp.asarray(a)
+                     for k, a in loss_batch(cfgs[name].vocab, *case[1:]).items()}
+            loss, grads = grad_fn(params, batch)
+            res[f"loss/{case}/loss"] = np.asarray(loss)
+            put_tree(res, f"loss/{case}/grads", grads)
+    for case in ADAMW_CASES:
+        params, grads, state = adamw_inputs(case)
+        p2, s2, om = adamw_update(params, grads, state, OptConfig(**ADAMW_OPT))
+        put_tree(res, f"adamw/{case}/params", p2)
+        put_tree(res, f"adamw/{case}/state", s2)
+        res[f"adamw/{case}/lr"] = np.asarray(om["lr"])
+        res[f"adamw/{case}/grad_norm"] = np.asarray(om["grad_norm"])
+    tiny = cfgs["tiny"]
+    m = build_model(tiny)
+    params = m.init(jax.random.PRNGKey(TRAIN_SEED))
+    opt = init_opt_state(params)
+    step = jax.jit(make_train_step(m, TrainConfig(opt=OptConfig(**STEP_OPT))))
+    pipe = TokenPipeline(vocab=tiny.vocab, **STEP_PIPE)
+    for i in range(TRAIN_STEPS):
+        batch = {k: jnp.asarray(a) for k, a in pipe.batch_at(i).items()}
+        params, opt, metrics = step(params, opt, batch)
+        res[f"steps/{i}/loss"] = np.asarray(metrics["loss"])
+        put_tree(res, f"steps/{i}/params", params)
+    for seed, st in PIPE_CASES:
+        for k, a in TokenPipeline(seed=seed, **PIPE_SHAPE).batch_at(st).items():
+            res[f"pipe/{seed}/{st}/{k}"] = a
+    cfg = ModelConfig(**TRAINER_CFG)
+    model = build_model(cfg)
+    pipe = TokenPipeline(**TRAINER_PIPE)
+
+    def trainer(steps, where):
+        return Trainer(model, pipe, TrainerConfig(
+            total_steps=steps, ckpt_every=TRAINER_KILL, ckpt_dir=str(work / where),
+            log_every=100, train=TrainConfig(opt=OptConfig(**TRAINER_OPT))))
+
+    p_full, _, _ = trainer(TRAINER_STEPS, "jax_full").run(resume=False)
+    put_tree(res, "trainer/jax_full", p_full)
+    trainer(TRAINER_KILL, "jax_kill").run(resume=False)
+    p_res, _, _ = trainer(TRAINER_STEPS, "port_kill").run(resume=True)
+    put_tree(res, "trainer/port_resumed", p_res)
+    return res
+
+
 RECIPES = {"core": _recipe_core, "gol3d": _recipe_gol3d, "pack": _recipe_pack,
            "halo": _recipe_halo, "distributed": _recipe_distributed,
            "flash": _recipe_flash, "lm": _recipe_lm, "ckpt": _recipe_ckpt,
-           "xrun": _recipe_xrun, "serve_cli": _recipe_serve_cli}
+           "xrun": _recipe_xrun, "serve_cli": _recipe_serve_cli,
+           "train": _recipe_train}
 
 
 if __name__ == "__main__":

@@ -277,8 +277,14 @@ def test_wrapper_checks_and_counts_no_launch_on_cpu():
         flash_attention_fwd(empty, empty, empty)
     with pytest.raises(ValueError, match="BH or D"):
         flash_attention_fwd(q, k[:1], v[:1])
-    with pytest.raises(NotImplementedError, match="forward only"):
-        tops.flash_attention(q[None].requires_grad_(), k[None], v[None])
+    # a tensor that needs a gradient takes one: the recompute backward
+    # through the oracle, which launches nothing either
+    qg = q[None].clone().requires_grad_()
+    tops.flash_attention(qg, k[None], v[None], True, "morton", 32, 64).sum().backward()
+    want = q[None].clone().requires_grad_()
+    ref.attention_ref(want[0], k, v, causal=True).sum().backward()
+    assert torch.equal(qg.grad, want.grad)
+    assert _build.LAUNCHES["flash_attention_fwd"] == before
 
 
 @pytest.mark.parametrize("dtype,d,block_q,block_k,want", [

@@ -29,7 +29,10 @@ def test_import_pulls_in_no_jax():
             "repro_torch.checkpoint, repro_torch.checkpoint.ckpt, "
             "repro_torch.stencil.runner, repro_torch.launch.faults, "
             "repro_torch.launch.elastic, repro_torch.serve.roi, "
-            "repro_torch.serve.service, sys; "
+            "repro_torch.serve.service, repro_torch.train, "
+            "repro_torch.train.optimizer, repro_torch.train.train_step, "
+            "repro_torch.train.trainer, repro_torch.data, "
+            "repro_torch.data.pipeline, repro_torch.launch.train, sys; "
             "bad = [m for m in sys.modules if m in ('jax', 'repro', 'ml_dtypes', "
             "'benchmarks') or m.startswith(('jax.', 'repro.', 'ml_dtypes.', "
             "'benchmarks.'))]; "
@@ -53,7 +56,8 @@ def test_sources_name_no_jax_import():
             "zoo.py", "params.py", "layers.py", "registry.py",
             "smollm_360m.py", "serve_step.py", "serve.py", "ckpt.py",
             "runner.py", "faults.py", "elastic.py", "roi.py",
-            "service.py"} <= names
+            "service.py", "optimizer.py", "train_step.py", "trainer.py",
+            "pipeline.py", "train.py"} <= names
     assert len(files) > 10
     for f in files:
         assert not pat.search(f.read_text()), f
