@@ -52,6 +52,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.models.params import leaf_paths, unflatten
+
 __all__ = ["save", "save_async", "wait", "restore", "latest_step",
            "valid_steps", "CheckpointCorruptError"]
 
@@ -76,25 +78,6 @@ def crc32(a: np.ndarray) -> int:
     return zlib.crc32(np.ascontiguousarray(a).reshape(-1).view(np.uint8))
 
 
-def _flatten(tree, prefix=()):
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _flatten(tree[k], prefix + (str(k),))
-    else:
-        yield "/".join(prefix), tree
-
-
-def _unflatten(flat: dict[str, Any]):
-    root: dict = {}
-    for key, v in flat.items():
-        parts = key.split("/")
-        node = root
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = v
-    return root
-
-
 def _to_host(v, copy: bool) -> tuple[np.ndarray, str]:
     """(the array written to disk, its logical dtype name); with ``copy``
     it shares no memory with ``v``, which the caller may then change."""
@@ -114,7 +97,8 @@ def _to_host(v, copy: bool) -> tuple[np.ndarray, str]:
 
 
 def _host_tree(tree: dict, copy: bool = False) -> dict[str, tuple[np.ndarray, str]]:
-    return {k: _to_host(v, copy) for k, v in _flatten(tree)}
+    return {"/".join(map(str, path)): _to_host(v, copy)
+            for path, v in leaf_paths(tree)}
 
 
 def save(ckpt_dir: str, step: int, tree: dict, *, meta: dict | None = None,
@@ -328,4 +312,4 @@ def restore(ckpt_dir: str, step: int | None = None, *,
 def _finish(loaded: dict, manifest: dict, device) -> tuple[dict, dict]:
     if device is not None:
         loaded = {k: torch.as_tensor(v).to(device) for k, v in loaded.items()}
-    return _unflatten(loaded), manifest["meta"]
+    return unflatten({tuple(k.split("/")): v for k, v in loaded.items()}), manifest["meta"]

@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.params import _leaf_paths, _unflatten
+from repro_torch.models.params import leaf_paths, unflatten
 from repro_torch.models.transformer import model_defs
 from repro_torch.models.zoo import Model
 from repro_torch.stencil.gol3d import Gol3d, Gol3dConfig
@@ -69,20 +69,12 @@ def weights_from_numpy(weights: np.ndarray, device="cuda") -> torch.Tensor:
     return torch.from_numpy(arr.copy()).to(resolve_device(device))
 
 
-def _numpy_leaves(tree, prefix=()):
-    if not isinstance(tree, dict):
-        yield prefix, tree
-        return
-    for k in sorted(tree):
-        yield from _numpy_leaves(tree[k], prefix + (k,))
-
-
 def _checked_leaves(tree: dict, defs, dtype: np.dtype, what: str) -> dict:
     """``tree``'s leaves as numpy arrays by path, after checking that every
     path, shape and dtype matches the ParamDef tree ``defs``, with no leaf
     missing or left over."""
-    want = {path: d for path, d in _leaf_paths(defs)}
-    got = {path: np.asarray(a) for path, a in _numpy_leaves(tree)}
+    want = {path: d for path, d in leaf_paths(defs)}
+    got = {path: np.asarray(a) for path, a in leaf_paths(tree)}
     if set(got) != set(want):
         missing = sorted("/".join(p) for p in set(want) - set(got))
         extra = sorted("/".join(p) for p in set(got) - set(want))
@@ -131,7 +123,7 @@ def opt_state_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     for name in ("m", "v"):
         got = _checked_leaves(tree[name], defs, np.dtype(np.float32),
                               f"optimizer state {name!r} of {cfg.name}")
-        out[name] = _unflatten({path: torch.from_numpy(arr.copy()).to(dev)
+        out[name] = unflatten({path: torch.from_numpy(arr.copy()).to(dev)
                                 for path, arr in got.items()})
     step = np.asarray(tree["step"])
     if step.shape != () or step.dtype != np.int32:

@@ -16,7 +16,7 @@ import torch.nn.functional as F
 from repro_torch.core.layout import device_constant
 
 __all__ = ["rmsnorm", "rope_freqs", "apply_rope", "swiglu", "embed",
-           "unembed", "softmax_cross_entropy", "causal_window_mask"]
+           "unembed", "nll", "softmax_cross_entropy", "causal_window_mask"]
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -66,17 +66,22 @@ def unembed(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return x.float() @ w.float()
 
 
+def nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-position negative log-likelihood: logits (..., V) f32, labels
+    (...) int -> (...)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    return lse - torch.gather(logits, -1, labels[..., None].long())[..., 0]
+
+
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           mask: torch.Tensor | None = None) -> torch.Tensor:
     """Mean next-token CE. logits: (B,S,V) f32; labels: (B,S) int32; with
     ``mask`` (B,S), the mean over the positions it keeps (at least 1)."""
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = lse - ll
+    per_pos = nll(logits, labels)
     if mask is None:
-        return nll.mean()
+        return per_pos.mean()
     mask = mask.float()
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return (per_pos * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 def causal_window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,

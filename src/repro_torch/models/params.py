@@ -19,7 +19,8 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["ParamDef", "init_params", "count_params"]
+__all__ = ["ParamDef", "init_params", "count_params", "leaf_paths", "leaves",
+           "unflatten", "tree_map", "tree_like"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,12 +34,47 @@ class ParamDef:
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
 
 
-def _leaf_paths(tree, prefix=()):
-    if isinstance(tree, ParamDef):
+def leaf_paths(tree, prefix=()):
+    """(path, leaf) of a tree of nested dicts in sorted key order (the JAX
+    package's flattening order); a path is a tuple of keys and a leaf is
+    anything that is not a dict (a ParamDef, a tensor, an array)."""
+    if not isinstance(tree, dict):
         yield prefix, tree
         return
     for k in sorted(tree):
-        yield from _leaf_paths(tree[k], prefix + (k,))
+        yield from leaf_paths(tree[k], prefix + (k,))
+
+
+def leaves(tree) -> list:
+    """The leaves of ``tree`` in :func:`leaf_paths` order."""
+    return [leaf for _, leaf in leaf_paths(tree)]
+
+
+def unflatten(flat: dict[tuple, Any]) -> dict:
+    """The tree of nested dicts whose leaves are ``flat``'s values, each at
+    its path."""
+    root: dict = {}
+    for path, v in flat.items():
+        node = root
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return root
+
+
+def tree_map(fn, tree) -> dict:
+    """``tree`` with ``fn`` applied to each leaf."""
+    return unflatten({path: fn(x) for path, x in leaf_paths(tree)})
+
+
+def tree_like(tree, new_leaves) -> dict:
+    """A tree shaped like ``tree`` whose leaves, in :func:`leaf_paths`
+    order, are ``new_leaves``."""
+    paths = [path for path, _ in leaf_paths(tree)]
+    new_leaves = list(new_leaves)
+    if len(new_leaves) != len(paths):
+        raise ValueError(f"{len(new_leaves)} leaves for a tree of {len(paths)}")
+    return unflatten(dict(zip(paths, new_leaves)))
 
 
 def _fill(t: torch.Tensor, d: ParamDef, generator: torch.Generator) -> None:
@@ -61,22 +97,12 @@ def init_params(defs, generator: torch.Generator, dtype=torch.float32,
     draws of each leaf's scale from ``generator`` (which must live on
     ``device``), leaves in sorted path order."""
     flat = {}
-    for path, d in _leaf_paths(defs):
+    for path, d in leaf_paths(defs):
         t = torch.empty(d.shape, dtype=dtype, device=device)
         _fill(t, d, generator)
         flat[path] = t
-    return _unflatten(flat)
+    return unflatten(flat)
 
 
 def count_params(defs) -> int:
-    return sum(int(np.prod(d.shape)) for _, d in _leaf_paths(defs))
-
-
-def _unflatten(flat: dict[tuple, Any]):
-    root: dict = {}
-    for path, v in flat.items():
-        node = root
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = v
-    return root
+    return sum(int(np.prod(d.shape)) for _, d in leaf_paths(defs))

@@ -25,7 +25,7 @@ import torch.utils.checkpoint as tcp
 
 from . import attention as attn
 from .config import ModelConfig
-from .layers import embed, rmsnorm, softmax_cross_entropy, swiglu, unembed
+from .layers import embed, nll, rmsnorm, softmax_cross_entropy, swiglu, unembed
 from .params import ParamDef
 
 __all__ = ["model_defs", "forward", "forward_hidden", "prefill",
@@ -215,11 +215,8 @@ def _chunked_ce(hidden, w_un, labels, mask, cfg, chunk: int = 512):
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(0, S, chunk):
         logits = _mask_pad(unembed(w_un, hidden[:, i:i + chunk]), cfg)
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1,
-                          labels[:, i:i + chunk, None].long())[..., 0]
         mc = mk[:, i:i + chunk]
-        tot = tot + ((lse - ll) * mc).sum()
+        tot = tot + (nll(logits, labels[:, i:i + chunk]) * mc).sum()
         cnt = cnt + mc.sum()
     return tot / torch.clamp(cnt, min=1.0)
 

@@ -20,7 +20,7 @@ from repro_torch.core.device import resolve_device
 
 from . import transformer as tfm
 from .config import ModelConfig
-from .params import _fill, _leaf_paths, count_params, init_params
+from .params import _fill, count_params, init_params, leaf_paths
 
 __all__ = ["Model"]
 
@@ -35,7 +35,7 @@ class Model(nn.Module):
         self.cfg = cfg
         self.device = resolve_device(device)
         dtype = getattr(torch, cfg.param_dtype)
-        for path, d in _leaf_paths(tfm.model_defs(cfg)):
+        for path, d in leaf_paths(tfm.model_defs(cfg)):
             node = self
             for name in path[:-1]:
                 if not hasattr(node, name):
@@ -65,7 +65,7 @@ class Model(nn.Module):
         """Draw every parameter from ``generator`` (on this model's
         device), leaves in sorted path order, each by its ParamDef."""
         tree = self.params()
-        for path, d in _leaf_paths(self.defs()):
+        for path, d in leaf_paths(self.defs()):
             node = tree
             for k in path:
                 node = node[k]

@@ -16,8 +16,10 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.models.params import leaves, tree_map
+
 __all__ = ["OptConfig", "init_opt_state", "adamw_update", "lr_at",
-           "global_norm", "tree_like"]
+           "global_norm"]
 
 
 @dataclass(frozen=True)
@@ -48,48 +50,18 @@ def lr_at(step: torch.Tensor, cfg: OptConfig) -> torch.Tensor:
     return cfg.lr * warm * frac
 
 
-def _leaves(tree) -> list:
-    """The leaves of a tree of nested dicts, in sorted key order (the JAX
-    package's flattening order)."""
-    if not isinstance(tree, dict):
-        return [tree]
-    return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
-
-
-def _map(fn, tree):
-    if not isinstance(tree, dict):
-        return fn(tree)
-    return {k: _map(fn, v) for k, v in tree.items()}
-
-
-def tree_like(tree, leaves):
-    """A tree shaped like ``tree`` whose leaves, in sorted key order, are
-    ``leaves``."""
-    it = iter(leaves)
-
-    def build(node):
-        if not isinstance(node, dict):
-            return next(it)
-        return {k: build(node[k]) for k in sorted(node)}
-
-    out = build(tree)
-    if next(it, None) is not None:
-        raise ValueError("more leaves than the tree holds")
-    return out
-
-
 def init_opt_state(params: dict) -> dict:
     """Zero f32 ``m`` and ``v`` shaped like ``params`` on its devices, and
     ``step`` 0 (int32)."""
     zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-    dev = _leaves(params)[0].device
-    return {"m": _map(zeros, params), "v": _map(zeros, params),
+    dev = leaves(params)[0].device
+    return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32."""
-    return torch.sqrt(sum(torch.sum(g.float() ** 2) for g in _leaves(tree)))
+    return torch.sqrt(sum(torch.sum(g.float() ** 2) for g in leaves(tree)))
 
 
 @torch.no_grad()
@@ -108,8 +80,8 @@ def adamw_update(params: dict, grads: dict, state: dict, cfg: OptConfig):
     t = (step + 1).float()
     bc1 = 1 - _f32(cfg.b1, t.device) ** t
     bc2 = 1 - _f32(cfg.b2, t.device) ** t
-    for p, g, m, v in zip(_leaves(params), _leaves(grads), _leaves(state["m"]),
-                          _leaves(state["v"])):
+    for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state["m"]),
+                          leaves(state["v"])):
         g = g.float() * scale
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
         v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)

@@ -19,9 +19,10 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.models import transformer as tfm
+from repro_torch.models.params import leaves as tree_leaves, tree_like
 from repro_torch.models.zoo import Model
 
-from .optimizer import OptConfig, _leaves, adamw_update, tree_like
+from .optimizer import OptConfig, adamw_update
 
 __all__ = ["TrainConfig", "make_train_step", "make_eval_step"]
 
@@ -41,7 +42,7 @@ def make_train_step(model: Model, tcfg: TrainConfig):
         return loss.detach(), torch.autograd.grad(loss, leaves)
 
     def train_step(params, opt_state, batch):
-        leaves = _leaves(params)
+        leaves = tree_leaves(params)
         with torch.profiler.record_function("loss_and_grads"):
             n = tcfg.microbatches
             if n > 1:

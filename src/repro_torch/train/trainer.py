@@ -12,7 +12,7 @@ Fault-tolerance contract:
 - periodic + final checkpoints, the periodic ones async (copied to the
   host, written in the background).
 - straggler mitigation: per-step wall time is tracked; steps slower than
-  ``straggler_factor ×`` the running median are counted and surfaced in
+  ``STRAGGLER_FACTOR ×`` the running median are counted and surfaced in
   metrics.
 
 A fresh run draws its weights from a ``torch.Generator`` seeded 0 on the
@@ -40,6 +40,8 @@ from .train_step import TrainConfig, make_train_step
 
 __all__ = ["TrainerConfig", "Trainer"]
 
+STRAGGLER_FACTOR = 3.0  # a step this many times the running median is slow
+
 
 @dataclass(frozen=True)
 class TrainerConfig:
@@ -47,17 +49,15 @@ class TrainerConfig:
     ckpt_every: int = 50
     ckpt_dir: str = os.path.join(tempfile.gettempdir(), "repro_ckpt")
     log_every: int = 10
-    straggler_factor: float = 3.0
     train: TrainConfig = field(default_factory=TrainConfig)
 
 
 class Trainer:
     def __init__(self, model: Model, pipeline: TokenPipeline,
-                 tcfg: TrainerConfig, *, extra_batch=None):
+                 tcfg: TrainerConfig):
         self.model = model
         self.pipe = pipeline
         self.tcfg = tcfg
-        self.extra_batch = extra_batch or {}
         self.step_fn = make_train_step(model, tcfg.train)
         self.metrics_log: list[dict] = []
 
@@ -90,14 +90,13 @@ class Trainer:
         for step in range(start_step, tcfg.total_steps):
             batch = {k: torch.from_numpy(v).to(dev)
                      for k, v in self.pipe.batch_at(step).items()}
-            batch.update(self.extra_batch)
             t0 = time.perf_counter()
             params, opt_state, metrics = self.step_fn(params, opt_state, batch)
             metrics = {k: float(v) for k, v in metrics.items()}
             dt = time.perf_counter() - t0
             times.append(dt)
             med = float(np.median(times[-50:]))
-            if len(times) > 5 and dt > tcfg.straggler_factor * med:
+            if len(times) > 5 and dt > STRAGGLER_FACTOR * med:
                 stragglers += 1
             metrics.update(step=step, step_time=dt, stragglers=stragglers)
             self.metrics_log.append(metrics)

@@ -38,10 +38,11 @@ from repro_torch.launch import train as tlaunch
 from repro_torch.models import Model
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.params import leaf_paths, tree_like
 from repro_torch.train import (OptConfig, TrainConfig, Trainer, TrainerConfig,
                                adamw_update, init_opt_state, make_eval_step,
                                make_train_step)
-from repro_torch.train.optimizer import global_norm, lr_at, tree_like
+from repro_torch.train.optimizer import global_norm, lr_at
 
 REPO = Path(__file__).resolve().parent.parent
 CFGS = lm_configs("repro_torch")
@@ -87,12 +88,9 @@ def _t(batch):
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
-def _named(tree, prefix=""):
+def _named(tree):
     """(path, leaf) of a tree of nested dicts, paths joined by "/"."""
-    if not isinstance(tree, dict):
-        return [(prefix, tree)]
-    return [kv for k in sorted(tree)
-            for kv in _named(tree[k], f"{prefix}/{k}" if prefix else k)]
+    return [("/".join(path), leaf) for path, leaf in leaf_paths(tree)]
 
 
 def _loss_and_grads(model, batch, remat):
