@@ -197,7 +197,37 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    AdamW's time; last the kernel alone at the step's shape (BH=60,
    S=4096, D=64) held against its plain version (one bf16 unit in the
    last place plus 1e-5) and timed beside it and SDPA. Its readings go into the kernels line under
-   ``flash_attention_fwd.training``.
+   ``flash_attention_fwd.training``;
+6. the other decoder LMs (``archs_phase``, the config modules of
+   ``ARCH_MODULES``, sizes ``CHIP_*`` in each), one at a time at full
+   width with seeded weights, bf16 activations and f32 weights, each freed
+   before the next: gemma3-1b (26 layers), phi4-mini-3.8b (32),
+   deepseek-coder-33b (8 of 62: its f32 weights would take 133 GB),
+   deepseek-moe-16b (8 of 28) and deepseek-v2-lite-16b (27). Each: a
+   counted ``Model.prefill`` at B=4, S=2048 (one ``sm90``
+   ``flash_attention_fwd`` launch a layer where the attention is GQA
+   without a window: phi4, coder and deepseek-moe-16b; none for
+   gemma3-1b's windows and MLA; counted as a main path),
+   ``greedy_decode`` of 32 new tokens for 4 requests (no launch), decode's
+   logits at the last prompt position against the prefill's in f32
+   activations (within 1e-4; in bf16 reported), prefill ms and tokens/s
+   and decode ms per step (median of 5 after a warm-up), peak memory.
+   Where flash runs: the kernel alone at that prefill's folded shape
+   (BH=96, 224 and 64; S=2048, D=128, bf16, causal) against its plain
+   version (one bf16 unit in the last place plus 1e-5), timed beside it,
+   SDPA and the bound of its operations at 989 TFLOP/s; for phi4 and
+   coder, 4 layers in f32 activations on the simple design against the
+   same prefill with the plain version (1e-4). gemma3-1b: 6 layers (five
+   local, one global) decoded 520 steps past the 512-position window
+   against the prefill (1e-4 in f32, 0.1 in bf16), and temperature
+   sampling (the step's token equal to the host's argmax of the same
+   logits / 0.7 plus the given Gumbel noise; one generator seed, the same
+   tokens twice). The MoE archs: the share of assignments the prefill
+   drops at the config's capacity factor (1.25), decode against prefill
+   at a capacity factor where none drops, and 2 layers (the dense one and
+   one MoE layer) in f32 at B=1, S=256 on the card against the same on
+   the CPU (1e-4). Its readings go into the kernels line under
+   ``flash_attention_fwd.archs``.
 
 It prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
@@ -283,6 +313,15 @@ LM_F32_LOGIT_TOL = 1e-4
 # relative L2 error of 1e-4
 TRAIN_BF16_LOSS_RTOL, TRAIN_BF16_GNORM_RTOL = 2e-4, 1e-3
 TRAIN_F32_LOSS_RTOL, TRAIN_F32_GRAD_RTOL = 1e-5, 1e-4
+# the names of GEMM kernels in a profiler trace (cuBLAS, CUTLASS)
+GEMM_KERNEL = re.compile(r"gemm|nvjet|xmma|cutlass", re.I)
+# the config modules (under repro_torch.configs) archs_phase serves, in order
+ARCH_MODULES = ("gemma3_1b", "phi4_mini_3p8b", "deepseek_coder_33b",
+                "deepseek_moe_16b", "deepseek_v2_lite_16b")
+# a MoE model's logits in f32 activations on the card against the same
+# weights on the CPU (2 layers at full width): the same f32 arithmetic
+# summed in other orders, as LM_F32_LOGIT_TOL
+MOE_CARD_CPU_TOL = 1e-4
 # a checkpoint every CKPT_INTERVAL steps on the checkpointed main path
 CKPT_INTERVAL = 4
 
@@ -310,6 +349,50 @@ def kernel_name(line: str) -> str | None:
                         re.findall(r"Li(\d+)E|\d+([A-Za-z_]\w*?)(?=L|E|$)", args)]
                 return line[start:end] + (f"<{', '.join(args)}>" if args else "")
     return None
+
+
+def plain_fwd(q, k, v, *, causal, block_q, block_k, schedule):
+    """``flash_attention_fwd``'s plain version with the wrapper's signature,
+    to swap into ``kops.flash_attention_fwd`` (the blocks and schedule
+    change nothing in it)."""
+    from repro_torch.kernels import ref
+
+    return ref.flash_attention_ref(q, k, v, causal=causal)
+
+
+def events_ms(fn, reps=5, inner=5) -> float:
+    """Median over ``reps`` of the mean CUDA-event time of ``inner`` calls
+    of ``fn``, after a warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        for _ in range(inner):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / inner)
+    return statistics.median(times)
+
+
+def walls_ms(fn, n=5) -> float:
+    """Median over ``n`` of the host-clock ms of ``fn`` ending in a
+    synchronize, after a warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(n):
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t1))
+    return statistics.median(walls)
 
 
 def train_phase(dev, flash_err) -> dict:
@@ -357,9 +440,6 @@ def train_phase(dev, flash_err) -> dict:
     pipe = TokenPipeline(vocab=cfg.vocab, batch=B, seq=S, seed=0)
     batch = batch_of(pipe, 0)
     kernel_fwd = kops.flash_attention_fwd
-
-    def plain_fwd(q, k, v, *, causal, block_q, block_k, schedule):
-        return ref.flash_attention_ref(q, k, v, causal=causal)
 
     def fresh_step(microbatches=1, fwd=kernel_fwd):
         """One step from the seeded weights and a zero optimizer state,
@@ -532,7 +612,6 @@ def train_phase(dev, flash_err) -> dict:
         if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0 \
                 and e.key not in ranges:
             by_name[e.key] = e.self_device_time_total / 1e3
-    gemm = re.compile(r"gemm|nvjet|xmma|cutlass", re.I)
 
     def kernels_under(ev):
         yield from ev.kernels
@@ -543,7 +622,7 @@ def train_phase(dev, flash_err) -> dict:
         return sum(k.duration for e in prof.events() if e.name == name
                    for k in kernels_under(e) if pick(k.name)) / 1e3
 
-    is_gemm = lambda n: bool(gemm.search(n)) and "flash" not in n
+    is_gemm = lambda n: bool(GEMM_KERNEL.search(n)) and "flash" not in n
     shares = {}
     if by_name:
         busy = sum(by_name.values())
@@ -578,20 +657,6 @@ def train_phase(dev, flash_err) -> dict:
     # the kernel alone at the step's shape (the folded q, k, v of one
     # layer): held against its plain version on the same inputs, then timed
     # beside it and SDPA with CUDA events
-    def events_ms(fn, reps=5, inner=5):
-        fn()
-        sync()
-        times = []
-        for _ in range(reps):
-            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            e0.record()
-            for _ in range(inner):
-                fn()
-            e1.record()
-            sync()
-            times.append(e0.elapsed_time(e1) / inner)
-        return statistics.median(times)
-
     gen = torch.Generator(device=dev).manual_seed(2)
     fq, fk, fv = (torch.randn((B * cfg.n_heads, S, cfg.hd), generator=gen,
                               device=dev, dtype=torch.bfloat16) for _ in range(3))
@@ -640,6 +705,425 @@ def train_phase(dev, flash_err) -> dict:
         microbatch2_loss_rel=micro_rel, f32_loss_rel=f32_loss_rel,
         f32_grad_rel_l2=f32_grad_rel, resume_bit_equal=same,
         flash_at_train_shape=flash_at_s, profile=shares))
+
+
+def archs_phase(dev, flash_err) -> dict:
+    """The other decoder LMs at full width, one at a time (each one's
+    tensors freed before the next): the config modules of
+    ``ARCH_MODULES`` at the depth ``CHIP_LAYERS`` of each, bf16
+    activations, f32 weights from a seeded ``torch.Generator`` and
+    ``use_flash_kernel``. Each: a counted ``Model.prefill`` at B=4, S=2048
+    (one ``sm90`` flash launch a layer where the attention is GQA without
+    a window; none for gemma3-1b's windows and MLA), ``greedy_decode`` of
+    4 requests (no launch), decode's logits against the prefill's in f32
+    activations (bf16 reported), prefill and decode timed, the peak memory
+    and one profiled prefill. Where flash runs, the kernel alone at that
+    prefill's folded shape against its plain version (``flash_err``),
+    timed beside it, SDPA and its bound, and where ``CHIP_F32_LAYERS`` is
+    set, that many layers in f32 activations with the kernel against the
+    same prefill with its plain version. gemma3-1b: 6 layers (five local,
+    one global) decoded 520 steps, past the window, against the prefill;
+    temperature sampling. The MoE archs: the prefill's share of dropped
+    assignments at the config's capacity factor, decode against prefill
+    at a capacity factor where none drops, and 2 layers in f32 on the card
+    against the CPU stage by stage (end to end reported). Returns the
+    readings (``launches``: the counted prefills' flash launches)."""
+    import importlib
+
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.registry import ShapeSpec, concrete_batch
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import Model
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import embed, rmsnorm, unembed
+    from repro_torch.models.params import init_params, tree_map
+    from repro_torch.serve import greedy_decode, make_serve_step
+    from repro_torch.serve.serve_step import gumbel_noise
+
+    sync = torch.cuda.synchronize
+    t_phase = time.perf_counter()
+    base_mem = torch.cuda.memory_allocated()
+    log(f"archs phase: {base_mem / 2**30:.2f} GiB held before it")
+    kernel_fwd = kops.flash_attention_fwd
+
+    def with_fwd(fwd, fn):
+        kops.flash_attention_fwd = fwd
+        try:
+            with torch.no_grad():
+                return fn()
+        finally:
+            kops.flash_attention_fwd = kernel_fwd
+
+    def counted(fn):
+        _build.reset_launches()
+        out = fn()
+        sync()
+        return out, dict(_build.LAUNCHES), dict(_build.FLASH_DESIGN_LAUNCHES)
+
+    def first_layers(params, cfg, n):
+        """The parameters of ``cfg``'s first ``n`` layers (views): every
+        dense layer of the moe family, then the rest from ``layers``."""
+        k = cfg.moe.first_k_dense if cfg.family == "moe" else 0
+        out = {**params, "layers": tree_map(
+            lambda t: t[:n - k], params["layers"])}
+        return out, dataclasses.replace(cfg, n_layers=n)
+
+    def decode_vs_prefill(params_, c, tokens):
+        """max |decode's last logits - prefill's| and argmax agreement,
+        the cache filled by teacher-forced steps over ``tokens``."""
+        n_b, n_t = tokens.shape
+        with torch.no_grad():
+            cache = init_params(tfm.cache_defs(c, n_b, n_t), None,
+                                torch.float32, dev)
+            for t in range(n_t):
+                dec, cache = tfm.decode_step(params_, cache, {
+                    "tokens": tokens[:, t:t + 1], "cur": t}, c)
+            pre = tfm.prefill(params_, {"tokens": tokens}, c)
+        return ((dec[:, 0] - pre).abs().max().item(),
+                int((dec[:, 0].argmax(-1) == pre.argmax(-1)).sum()))
+
+    def serve_arch(sz) -> dict:
+        """One arch's runs and checks (its tensors go when it returns)."""
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(sz.CONFIG, n_layers=sz.CHIP_LAYERS,
+                                  use_flash_kernel=True)
+        B, S = sz.CHIP_PREFILL_BATCH, sz.CHIP_PREFILL_SEQ
+        model = Model(cfg, device=dev).init(
+            torch.Generator(device=dev).manual_seed(0))
+        params = model.params()
+        r = dict(layers=cfg.n_layers, of_layers=sz.CONFIG.n_layers,
+                 n_params=model.n_params(), batch=B, seq=S)
+        batch = concrete_batch(cfg, ShapeSpec("chip_prefill", S, B, "prefill"),
+                               seed=0, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        logits, counts, by_design = counted(lambda: model.prefill(batch))
+        n_flash = cfg.n_layers if cfg.mla is None and cfg.sliding_window is None else 0
+        check(counts == {**{n: 0 for n in counts}, "flash_attention_fwd": n_flash},
+              f"{cfg.name} prefill launches {counts}, want {n_flash} flash_attention_fwd")
+        check(by_design == {"sm90": n_flash, "simple": 0},
+              f"{cfg.name} prefill flash launches by design {by_design}")
+        check(logits.shape == (B, cfg.vocab) and bool(torch.isfinite(logits).all()),
+              f"{cfg.name} prefill logits not finite or misshapen")
+        r.update(flash_launches=n_flash, by_design=by_design,
+                 logit_std=logits.std().item())
+
+        # decode: 4 requests through greedy_decode, then decode's logits at
+        # the last prompt position against the prefill's on the prompts, in
+        # bf16 (reported: the two round at other places, and over 26 layers
+        # and 262,144 logits gemma3-1b's sit 0.104 apart, past smollm's
+        # LM_LOGIT_TOL) and in f32 activations (held to LM_F32_LOGIT_TOL:
+        # the same arithmetic summed in other orders). A MoE prefill of 16
+        # tokens has 2 places an expert at the config's capacity factor, so
+        # the pair runs where nothing drops
+        B_D, P_D, N_D = sz.CHIP_DECODE_BATCH, sz.CHIP_PROMPT_LEN, sz.CHIP_NEW_TOKENS
+        prompts = concrete_batch(cfg, ShapeSpec("chip_decode", P_D, B_D, "prefill"),
+                                 seed=1, device=dev)["tokens"]
+        toks, counts, _ = counted(lambda: greedy_decode(model, prompts, N_D,
+                                                        P_D + N_D + 1))
+        check(not any(counts.values()), f"{cfg.name} greedy_decode launched {counts}")
+        check(toks.shape == (B_D, N_D) and toks.dtype == torch.int32
+              and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+              f"{cfg.name} greedy_decode returned {tuple(toks.shape)} {toks.dtype}")
+        pair_cfg = cfg
+        if cfg.family == "moe":
+            pair_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=cfg.moe.n_routed / cfg.moe.top_k))
+            check(tmoe.capacity(P_D, pair_cfg) == P_D, "no-drop capacity")
+
+        bf_err, bf_agree = decode_vs_prefill(params, pair_cfg, prompts)
+        f32_err, f32_agree = decode_vs_prefill(
+            params, dataclasses.replace(pair_cfg, activation_dtype="float32"), prompts)
+        check(f32_err <= LM_F32_LOGIT_TOL,
+              f"{cfg.name} f32 decode vs prefill max |d| {f32_err}")
+        r.update(decode_vs_prefill=dict(bf16=bf_err, bf16_argmax_agree=bf_agree,
+                                        f32=f32_err, f32_argmax_agree=f32_agree))
+
+        if cfg.family == "moe":
+            # the share of assignments the prefill drops at the config's
+            # capacity factor, read from each MoE layer's own input
+            real = tmoe.moe_ffn
+            drops = []
+
+            def counting(p, x, cfg_):
+                _, _, ids = tmoe.route(p, x, cfg_)
+                keep = tmoe.dispatch_slots(ids, cfg_.moe.n_routed,
+                                           tmoe.capacity(x.shape[1], cfg_))[2]
+                drops.append(((~keep).sum().item(), keep.numel()))
+                return real(p, x, cfg_)
+
+            tmoe.moe_ffn = counting
+            try:
+                with torch.no_grad():
+                    model.prefill(batch)
+            finally:
+                tmoe.moe_ffn = real
+            r.update(capacity=tmoe.capacity(S, cfg),
+                     dropped_share=sum(d for d, _ in drops) / sum(n for _, n in drops),
+                     dropped_share_by_layer=[d / n for d, n in drops])
+
+        # timings: prefill and decode (host clock, median of 5 after a
+        # warm-up), then one profiled prefill: where its device time goes
+        r["prefill_ms"] = walls_ms(lambda: model.prefill(batch))
+        r["prefill_profile"] = profile_shares(lambda: model.prefill(batch))
+        r["tokens_per_s"] = B * S / r["prefill_ms"] * 1e3
+        steps = P_D + N_D - 1
+        r["decode_ms_per_step"] = walls_ms(
+            lambda: greedy_decode(model, prompts, N_D, P_D + N_D + 1)) / steps
+        r["peak_bytes"] = torch.cuda.max_memory_allocated() - base_mem
+        log(f"archs {cfg.name} ({cfg.n_layers} of {sz.CONFIG.n_layers} layers, "
+            f"{r['n_params'] / 1e9:.3f} B params): prefill B={B} S={S} "
+            f"{r['prefill_ms']:.3f} ms ({r['tokens_per_s']:.0f} tokens/s), "
+            f"flash launches {n_flash} (by design {by_design}); greedy_decode "
+            f"{B_D}x{N_D} {r['decode_ms_per_step']:.3f} ms per step; decode vs "
+            f"prefill max |d| {f32_err:.4g} in f32 (argmax {f32_agree}/{B_D}), "
+            f"{bf_err:.4g} in bf16 (argmax {bf_agree}/{B_D}"
+            + (f", capacity factor {pair_cfg.moe.capacity_factor:g}" if cfg.family == "moe" else "")
+            + f"); peak {r['peak_bytes'] / 2**30:.2f} GiB above the phase's base"
+            + (f"; prefill drops {100 * r['dropped_share']:.3f}% of assignments "
+               f"at C={r['capacity']} (per layer "
+               + ", ".join(f"{100 * x:.2f}" for x in r["dropped_share_by_layer"]) + ")"
+               if cfg.family == "moe" else ""))
+
+        pr = r["prefill_profile"]
+        if pr:
+            log(f"profile {cfg.name} prefill, profiler on: wall {pr['wall_ms']:.3f} ms, "
+                f"device busy {pr['busy_ms']:.3f} ms ({100 * pr['busy_ms'] / pr['wall_ms']:.1f}%); "
+                f"GEMMs {pr['gemm_ms']:.3f} ms ({100 * pr['gemm_ms'] / pr['busy_ms']:.1f}%), "
+                f"flash {pr['flash_ms']:.3f} ({100 * pr['flash_ms'] / pr['busy_ms']:.1f}%), "
+                f"the rest {pr['other_ms']:.3f} ({100 * pr['other_ms'] / pr['busy_ms']:.1f}%); "
+                + "; ".join(f"{k} {v:.3f}" for k, v in pr["top"]))
+        else:
+            log(f"profile {cfg.name} prefill: the profiler recorded no device time "
+                "(not measured)")
+
+        if n_flash:
+            # the kernel alone at this prefill's folded shape, and the
+            # prefill's first layers in f32 activations against the same
+            # with the plain version in the kernel's place
+            gen = torch.Generator(device=dev).manual_seed(3)
+            H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+            fq, fk, fv = kops._fold_gqa(*(
+                torch.randn((B, h, S, D), generator=gen, device=dev,
+                            dtype=torch.bfloat16) for h in (H, KV, KV)))
+            _build.reset_launches()
+            got = kernel_fwd(fq, fk, fv, causal=True, block_q=128, block_k=128,
+                             schedule=cfg.flash_schedule)
+            sync()
+            check(dict(_build.FLASH_DESIGN_LAUNCHES) == {"sm90": 1, "simple": 0},
+                  f"flash at {tuple(fq.shape)} ran {dict(_build.FLASH_DESIGN_LAUNCHES)}")
+            err = flash_err(got, ref.flash_attention_ref(fq, fk, fv, causal=True),
+                            f"{tuple(fq.shape)} bf16 causal, {cfg.name}'s prefill")
+            BH = fq.shape[0]
+            ops_ = 4 * D * BH * S * (S + 1) // 2
+            nbytes = 2 * (2 * fq.numel() + 2 * fk.numel() * KV // H)
+            t_o, t_b = ops_ / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+            q4, k4, v4 = (t.view(B, H, S, D) for t in (fq, fk, fv))
+            fl = dict(
+                shape=[BH, S, D], max_abs_err=err,
+                ms=events_ms(lambda: kernel_fwd(fq, fk, fv, causal=True, block_q=128,
+                                                block_k=128, schedule=cfg.flash_schedule),
+                             inner=10),
+                plain_ms=events_ms(lambda: ref.flash_attention_ref(fq, fk, fv, causal=True),
+                                   reps=3, inner=1),
+                library_ms=events_ms(lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=True), inner=10),
+                bound_ms=1e3 * max(t_o, t_b),
+                bound_by="operations" if t_o >= t_b else "bytes")
+            log(f"flash_attention_fwd at {cfg.name}'s prefill {tuple(fl['shape'])} bf16 "
+                f"causal, Hopper design: max |d| against the plain version {err:.3g}; "
+                f"{fl['ms']:.4f} ms ({ops_ / fl['ms'] / 1e9:.1f} TFLOP/s); plain "
+                f"{fl['plain_ms']:.3f} ms; SDPA {fl['library_ms']:.4f} ms; bound "
+                f"{fl['bound_ms']:.4f} ms by {fl['bound_by']}")
+            r["flash"] = fl
+            n32 = getattr(sz, "CHIP_F32_LAYERS", 0)
+            if n32:
+                p32, c32 = first_layers(params, cfg, n32)
+                c32 = dataclasses.replace(c32, activation_dtype="float32")
+                (l_k, _, by32) = counted(lambda: with_fwd(
+                    kernel_fwd, lambda: tfm.prefill(p32, batch, c32)))
+                check(by32 == {"sm90": 0, "simple": n32},
+                      f"{cfg.name} f32 prefill flash launches {by32}")
+                l_p = with_fwd(plain_fwd, lambda: tfm.prefill(p32, batch, c32))
+                f32_err = (l_k - l_p).abs().max().item()
+                check(f32_err <= LM_F32_LOGIT_TOL,
+                      f"{cfg.name} f32 prefill: kernel vs plain version max |d| {f32_err}")
+                r["f32_prefill"] = dict(layers=n32, max_abs_err=f32_err,
+                                        logit_std=l_p.std().item())
+                log(f"archs {cfg.name} {n32} layers in f32 activations B={B} S={S}: "
+                    f"{n32} simple flash launches; logits with the kernel against "
+                    f"its plain version max |d| {f32_err:.4g} (std {l_p.std().item():.4g})")
+
+        if hasattr(sz, "CHIP_WINDOW_LAYERS"):
+            # past the window: 6 layers (five local, one global), the cache
+            # filled by teacher-forced decode steps to 520 positions; the
+            # last step against the prefill's last position
+            pw, cw = first_layers(params, cfg, sz.CHIP_WINDOW_LAYERS)
+            flags = [cw.layer_is_global(i) for i in range(cw.n_layers)]
+            check(flags == [False] * 5 + [True], f"gemma3 window layers {flags}")
+            n_w = sz.CHIP_WINDOW_SEQ
+            check(n_w > cw.sliding_window, "the window check runs past the window")
+            wt = concrete_batch(cw, ShapeSpec("chip_window", n_w, 2, "prefill"),
+                                seed=2, device=dev)["tokens"]
+            w32 = dataclasses.replace(cw, activation_dtype="float32")
+            w_err, _ = decode_vs_prefill(pw, w32, wt)
+            w_bf, _ = decode_vs_prefill(pw, cw, wt)
+            check(w_err <= LM_F32_LOGIT_TOL,
+                  f"gemma3 window: f32 decode vs prefill max |d| {w_err}")
+            check(w_bf <= LM_LOGIT_TOL,
+                  f"gemma3 window: bf16 decode vs prefill max |d| {w_bf}")
+            with torch.no_grad():
+                unwindowed = (tfm.prefill(pw, {"tokens": wt}, dataclasses.replace(
+                    w32, sliding_window=None)) - tfm.prefill(pw, {"tokens": wt}, w32))
+            r["window"] = dict(layers=cw.n_layers, positions=n_w, f32=w_err, bf16=w_bf,
+                               without_window=unwindowed.abs().max().item())
+            log(f"archs {cfg.name} window: {cw.n_layers} layers (global {flags}), "
+                f"{n_w} decode steps past the {cw.sliding_window}-position window: "
+                f"last step against the prefill max |d| {w_err:.4g} in f32, "
+                f"{w_bf:.4g} in bf16; the f32 prefill without the window differs "
+                f"by {r['window']['without_window']:.4g}")
+
+            # temperature sampling: the step's token is the argmax the host
+            # computes from the same logits and noise; one seed, one draw
+            serve = make_serve_step(model, sample=True, temperature=0.7)
+            cache = model.init_cache(B_D, 2, torch.float32)
+            b0 = {"tokens": prompts[:, :1], "cur": 0}
+            g = gumbel_noise((B_D, cfg.vocab_padded),
+                             torch.Generator(device=dev).manual_seed(5), dev)
+            with torch.no_grad():
+                lg, cache = model.decode(cache, b0)
+            nxt, _ = serve(cache, {**b0, "gumbel": g})
+            want = torch.argmax(lg[:, -1].cpu() / 0.7 + g.cpu(), dim=-1)
+            check(torch.equal(nxt.cpu().long(), want),
+                  f"sampled {nxt.tolist()} != host argmax {want.tolist()}")
+
+            def sampled(seed):
+                step = make_serve_step(model, sample=True, temperature=0.7,
+                                       generator=torch.Generator(device=dev).manual_seed(seed))
+                c = model.init_cache(B_D, P_D + 1, torch.float32)
+                return torch.stack([step(c, {"tokens": prompts[:, t:t + 1], "cur": t})[0]
+                                    for t in range(P_D)], dim=1)
+
+            s7 = sampled(7)
+            check(torch.equal(s7, sampled(7)), "the same seed sampled other tokens")
+            r["sampling"] = dict(host_argmax_equal=True, seed_repeats=True,
+                                 other_seed_equal=bool(torch.equal(s7, sampled(8))))
+            log(f"archs {cfg.name} sampling at temperature 0.7: tokens equal to the "
+                f"host's argmax of logits/0.7 + the given noise; seed 7 twice "
+                f"equal; seed 8 equal to seed 7: {r['sampling']['other_seed_equal']}")
+
+        if cfg.family == "moe":
+            # no kernel holds MoE or MLA: 2 layers (the dense one and one MoE
+            # layer) in f32 on the card against the same weights on the CPU,
+            # stage by stage: each layer and the head take the card's input
+            # on both devices. End to end the two may differ by more, and
+            # are reported: routing is discontinuous (a token whose K-th and
+            # (K+1)-th experts lie within the devices' rounding may take
+            # other experts and shift which assignments drop)
+            p2, c2 = first_layers(params, cfg, sz.CHIP_CPU_LAYERS)
+            c2 = dataclasses.replace(c2, activation_dtype="float32")
+            t2 = concrete_batch(c2, ShapeSpec("chip_cpu", sz.CHIP_CPU_SEQ, 1, "prefill"),
+                                seed=3, device=dev)["tokens"]
+            p_cpu = tree_map(lambda t: t.cpu(), p2)
+
+            def stages(p_, toks_, given=None):
+                """Each layer's output and the logits (on the CPU), the
+                routing of each MoE layer (each token's experts, sorted);
+                with ``given`` (the inputs of the layers and of the head),
+                each stage takes its given input."""
+                seen, real = [], tmoe.route
+
+                def rec(pp, x, cc):
+                    out = real(pp, x, cc)
+                    seen.append(out[2].sort(-1).values.cpu())
+                    return out
+
+                tmoe.route = rec
+                outs = []
+                try:
+                    with torch.no_grad():
+                        x = embed(p_["embed"], toks_, torch.float32)
+                        pos = torch.arange(toks_.shape[1], device=x.device)
+                        layers = [(pl, bool(fl)) for n, fl in tfm._stacks(c2)
+                                  for pl, fl in zip(tfm._layers(p_[n]), fl)]
+                        for i, (pl, fl) in enumerate(layers):
+                            if given is not None:
+                                x = given[i].to(x.device)
+                            x = tfm._attn_layer_train(pl, x, c2, fl, pos)[0]
+                            outs.append(x.cpu())
+                        if given is not None:
+                            x = given[-1].to(x.device)
+                        h = rmsnorm(x, p_["final_norm"], c2.norm_eps)
+                        lg = tfm._mask_pad(unembed(tfm._unembed_w(p_, c2), h), c2)
+                finally:
+                    tmoe.route = real
+                return outs, lg.cpu(), seen
+
+            on_card, lg_card, seen_card = stages(p2, t2)
+            with torch.no_grad():
+                given = [embed(p2["embed"], t2, torch.float32).cpu()] + on_card
+            on_cpu, lg_cpu, _ = stages(p_cpu, t2.cpu(), given)
+            stage_errs = [(a - b).abs().max().item()
+                          for a, b in zip(on_card + [lg_card], on_cpu + [lg_cpu])]
+            _, lg_e2e, seen_e2e = stages(p_cpu, t2.cpu())
+            rerouted = sum(int((a != b).any(-1).sum())
+                           for a, b in zip(seen_card, seen_e2e))
+            e2e_err = (lg_card - lg_e2e).abs()
+            worst = divmod(int(e2e_err.argmax()), lg_card.shape[-1])
+            check(max(stage_errs) <= MOE_CARD_CPU_TOL,
+                  f"{cfg.name} f32 stages card vs CPU on one input max |d| {stage_errs}")
+            r["card_vs_cpu"] = dict(layers=c2.n_layers, seq=sz.CHIP_CPU_SEQ,
+                                    stage_max_abs_err=stage_errs,
+                                    end_to_end_max_abs_err=e2e_err.max().item(),
+                                    rerouted_tokens=rerouted,
+                                    logit_std=lg_cpu.std().item())
+            log(f"archs {cfg.name} {c2.n_layers} layers f32 B=1 S={sz.CHIP_CPU_SEQ}, "
+                f"card against CPU: each stage on the card's input (layers, then the "
+                f"head) max |d| {', '.join(f'{e:.4g}' for e in stage_errs)}; end to end "
+                f"{e2e_err.max().item():.4g} (at position {worst[0]}, token "
+                f"{worst[1]}; positions over 1e-4: "
+                f"{int((e2e_err.amax(-1) > 1e-4).sum())}), tokens routed to other "
+                f"experts {rerouted}; logit std {lg_cpu.std().item():.4g}")
+
+        r["seconds"] = time.perf_counter() - t0
+        return r
+
+    def profile_shares(fn) -> dict:
+        """One profiled call of ``fn``: wall and device-busy ms, the ms of
+        GEMMs, of the flash kernel and of the rest, and the five longest
+        kernels (empty when the trace holds no device time)."""
+        fn()
+        sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            fn()
+            sync()
+            wall = 1e3 * (time.perf_counter() - t1)
+        by_name = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0}
+        if not by_name:
+            return {}
+        flash = sum(v for k, v in by_name.items() if "flash_fwd" in k)
+        gemm = sum(v for k, v in by_name.items()
+                   if GEMM_KERNEL.search(k) and "flash" not in k)
+        busy = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        return dict(wall_ms=wall, busy_ms=busy, gemm_ms=gemm, flash_ms=flash,
+                    other_ms=busy - gemm - flash,
+                    top=[[k[:80], v] for k, v in top])
+
+    readings = {}
+    for name in ARCH_MODULES:
+        sz = importlib.import_module(f"repro_torch.configs.{name}")
+        readings[sz.CONFIG.name] = serve_arch(sz)
+        torch.cuda.empty_cache()
+    total_flash = sum(r["flash_launches"] for r in readings.values())
+    log(f"archs phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=total_flash, archs=readings)
 
 
 def main() -> int:
@@ -1985,9 +2469,6 @@ def main() -> int:
     kernel_fwd = kops.flash_attention_fwd
     layer_errs = []
 
-    def plain_fwd(q, k, v, *, causal, block_q, block_k, schedule):
-        return ref.flash_attention_ref(q, k, v, causal=causal)
-
     def both_fwd(q, k, v, *, causal, block_q, block_k, schedule):
         o = kernel_fwd(q, k, v, causal=causal, block_q=block_q,
                        block_k=block_k, schedule=schedule)
@@ -2648,17 +3129,6 @@ def main() -> int:
     # smollm-360m end to end: prefill with the kernel and with plain
     # attention, and decode; host clock around work ending in a
     # synchronize, median of 5 after a warm-up
-    def walls_ms(fn, n=5):
-        fn()
-        sync()
-        walls = []
-        for _ in range(n):
-            t1 = time.perf_counter()
-            fn()
-            sync()
-            walls.append(1e3 * (time.perf_counter() - t1))
-        return statistics.median(walls)
-
     pf_ms = walls_ms(lambda: lm.prefill(batch))
     pp_ms = walls_ms(lambda: tfm.prefill(lm.params(), batch, plain_cfg), n=3)
     dec_ms = walls_ms(lambda: greedy_decode(lm, prompts, N_D, P_D + N_D + 1))
@@ -2727,6 +3197,11 @@ def main() -> int:
     flash_row = next(k for k in kernels if k["name"] == "flash_attention_fwd")
     flash_row["launches"] += tr["launches"]
     flash_row["training"] = tr["training"]
+
+    # the other decoder LMs (their prefills' launches counted, added)
+    ar = archs_phase(dev, flash_err)
+    flash_row["launches"] += ar["launches"]
+    flash_row["archs"] = ar["archs"]
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -24,7 +24,11 @@ ARCHS = ("smollm-360m", "gemma3-1b", "deepseek-coder-33b", "phi4-mini-3.8b",
          "internvl2-76b", "zamba2-1.2b", "mamba2-2.7b")
 
 # arch -> module under repro_torch.configs, for the archs ported so far
-PORTED = {"smollm-360m": "smollm_360m"}
+PORTED = {"smollm-360m": "smollm_360m", "gemma3-1b": "gemma3_1b",
+          "deepseek-coder-33b": "deepseek_coder_33b",
+          "phi4-mini-3.8b": "phi4_mini_3p8b",
+          "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+          "deepseek-moe-16b": "deepseek_moe_16b"}
 
 
 @dataclass(frozen=True)
@@ -63,7 +67,7 @@ def get_smoke(arch: str) -> ModelConfig:
 
 def _input_shapes(cfg: ModelConfig, shape: ShapeSpec, batch_override=None):
     """Shapes of a cell's int32 model inputs, in the JAX package's order
-    (``input_specs`` of the dense family)."""
+    (``input_specs`` of the dense and moe families)."""
     B = batch_override or shape.global_batch
     if shape.mode in ("train", "prefill"):
         return {"tokens": (B, shape.seq_len), "labels": (B, shape.seq_len)}

@@ -1,6 +1,6 @@
-"""Attention: GQA (+ sliding window), full-sequence and decode.
+"""Attention variants: GQA (+ sliding window), MLA; full-sequence and decode.
 
-The torch counterpart of the GQA half of ``repro.models.attention``. The
+The torch counterpart of ``repro.models.attention``. The
 full-sequence path runs the SFC-scheduled ``flash_attention_fwd`` kernel
 (kernels/flash_attn.py) when ``cfg.use_flash_kernel`` is set, the model
 is causal and has no sliding window — on the card that is the CUDA
@@ -11,7 +11,10 @@ the preallocated cache through ``masked_sdpa``.
 
 The per-layer flag ``is_global`` (gemma3's local:global pattern) is a
 Python bool here: the layers run in a Python loop, not under ``scan``.
-MLA (DeepSeek-V2) waits for its slice (ROADMAP.md queue 1, item 12).
+MLA (DeepSeek-V2) keeps a compressed cache, the latent ``c_kv`` and the
+shared RoPE key ``k_rope``, and attends blockwise through it in plain
+arithmetic (queries in chunks of 1024 above 4096); it never calls the
+flash kernel, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -26,8 +29,8 @@ from repro_torch.kernels.ops import flash_attention
 from .config import ModelConfig
 from .layers import _rotate, causal_window_mask, rope_freqs
 
-__all__ = ["masked_sdpa", "gqa_attention", "gqa_decode", "rope_with_freqs",
-           "select_freqs"]
+__all__ = ["masked_sdpa", "gqa_attention", "gqa_decode", "mla_attention",
+           "mla_decode", "rope_with_freqs", "select_freqs"]
 
 _NEG = -1e30
 _Q_CHUNK = 1024
@@ -150,4 +153,85 @@ def gqa_decode(p: dict, x: torch.Tensor, cache: dict, cur: int,
     o = masked_sdpa(q, ck, cv, posq, posk, window=cfg.sliding_window,
                     is_global=is_global)
     o = o.reshape(B, 1, cfg.n_heads * cfg.hd).to(x.dtype)
+    return o @ p["wo"].to(x.dtype), cache
+
+
+# ----------------------------------------------------------------------
+# MLA (DeepSeek-V2): compressed KV latent cache
+# ----------------------------------------------------------------------
+
+def _mla_parts(p, x, cfg: ModelConfig):
+    mla = cfg.mla
+    B, S, D = x.shape
+    H = cfg.n_heads
+    nope, rope = mla.qk_nope_dim, mla.qk_rope_dim
+    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, H, nope + rope)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    dkv = x @ p["w_dkv"].to(x.dtype)
+    c_kv, k_rope = dkv[..., :mla.kv_lora_rank], dkv[..., mla.kv_lora_rank:]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_attend(p, q_nope, q_rope, c_kv, k_rope, posq, posk, cfg: ModelConfig,
+                q_chunk: int = _Q_CHUNK):
+    """Blockwise attention through the latent cache: scores and output in
+    f32 from the operands cast to f32 (the JAX package's f32 accumulation),
+    the probabilities rounded to v's dtype before the second product, the
+    output (B, Sq, H·v_dim) in v's dtype. For Sq > 4096 (a multiple of
+    ``q_chunk``) the queries go in chunks, so live scores are O(C·Sk)."""
+    mla = cfg.mla
+    B, Sk = c_kv.shape[:2]
+    Sq = q_nope.shape[1]
+    H = cfg.n_heads
+    nope, rope, vd = mla.qk_nope_dim, mla.qk_rope_dim, mla.v_dim
+    freqs = device_constant(("rope_freqs", rope, cfg.rope_theta),
+                            lambda: rope_freqs(rope, cfg.rope_theta), c_kv.device)
+    q_rope = rope_with_freqs(q_rope, posq, freqs)
+    k_rope = rope_with_freqs(k_rope[..., None, :], posk, freqs)[..., 0, :]
+    k_nope = (c_kv @ p["w_uk"].to(c_kv.dtype)).reshape(B, Sk, H, nope).float()
+    v = (c_kv @ p["w_uv"].to(c_kv.dtype)).reshape(B, Sk, H, vd)
+    vf, krf = v.float(), k_rope.float()
+    scale = 1.0 / math.sqrt(nope + rope)
+
+    def blk(qn, qr, pq):
+        s = (torch.einsum("bqhd,bkhd->bhqk", qn.float(), k_nope)
+             + torch.einsum("bqhd,bkd->bhqk", qr.float(), krf)) * scale
+        s = torch.where(causal_window_mask(pq, posk, None), s, _NEG)
+        pr = torch.softmax(s, dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", pr.to(v.dtype).float(),
+                            vf).to(v.dtype)
+
+    if Sq <= _CHUNK_THRESHOLD or Sq % q_chunk:
+        o = blk(q_nope, q_rope, posq)
+    else:
+        o = torch.cat([blk(q_nope[:, i:i + q_chunk], q_rope[:, i:i + q_chunk],
+                           posq[i:i + q_chunk])
+                       for i in range(0, Sq, q_chunk)], dim=1)
+    return o.reshape(B, Sq, H * vd)
+
+
+def mla_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                  pos: torch.Tensor | None = None, **_) -> torch.Tensor:
+    """Full-sequence MLA (prefill). x: (B,S,D)."""
+    S = x.shape[1]
+    if pos is None:
+        pos = torch.arange(S, device=x.device)
+    qn, qr, c_kv, k_rope = _mla_parts(p, x, cfg)
+    o = _mla_attend(p, qn, qr, c_kv, k_rope, pos, pos, cfg)
+    return o @ p["wo"].to(x.dtype)
+
+
+def mla_decode(p: dict, x: torch.Tensor, cache: dict, cur: int,
+               cfg: ModelConfig, **_):
+    """Single-token MLA decode against the compressed cache ``{c_kv:
+    (B,Smax,lora), k_rope: (B,Smax,rope)}``, written in place at ``cur``
+    as ``gqa_decode`` writes its cache. The attention output is cast to
+    the activation dtype before the output projection, as there."""
+    qn, qr, c_kv_new, k_rope_new = _mla_parts(p, x, cfg)
+    ck, kr = cache["c_kv"], cache["k_rope"]
+    ck[:, cur] = c_kv_new[:, 0].to(ck.dtype)
+    kr[:, cur] = k_rope_new[:, 0].to(kr.dtype)
+    posq = torch.full((1,), cur, dtype=torch.int64, device=x.device)
+    posk = torch.arange(ck.shape[1], device=x.device)
+    o = _mla_attend(p, qn, qr, ck, kr, posq, posk, cfg).to(x.dtype)
     return o @ p["wo"].to(x.dtype), cache

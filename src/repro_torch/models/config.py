@@ -2,8 +2,9 @@
 
 A verbatim copy of ``repro.models.config``: pure dataclasses, so a
 configuration means the same in both packages. The torch package runs the
-dense family (smollm-360m); the other families' sub-configs are here so
-that every configuration of the registry can be named.
+dense and moe families (with GQA or MLA attention); the other families'
+sub-configs are here so that every configuration of the registry can be
+named.
 """
 
 from __future__ import annotations

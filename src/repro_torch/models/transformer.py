@@ -1,16 +1,24 @@
 """Model assembly: param-def trees + the layer loop for forward/decode.
 
-The torch counterpart of ``repro.models.transformer`` for the dense
-family (a GQA decoder LM: smollm, deepseek-coder, phi4, gemma3's
-local:global pattern through per-layer flags). Per-layer parameters are
-stacked on a leading ``layers`` axis, as in the JAX package, so the two
-parameter trees match leaf for leaf; a Python loop over that axis takes
-the place of ``lax.scan``. Training runs through ``loss_fn``: the layer
-loop under activation checkpointing (``remat``, the JAX package's
-``jax.checkpoint`` around the scanned layer) and the cross-entropy over
-sequence chunks (``_chunked_ce``).
+The torch counterpart of ``repro.models.transformer`` for the dense and
+moe families:
 
-The other families — moe, ssm, hybrid, encdec, vlm — and MLA raise
+  dense — GQA decoder LM (smollm, deepseek-coder, phi4, gemma3's
+          local:global pattern through per-layer flags)
+  moe   — GQA or MLA attention + fine-grained MoE FFN (deepseek-moe,
+          deepseek-v2-lite); the first ``first_k_dense`` layers
+          (``dense_layers``) take a dense FFN of the "active-equivalent"
+          width d_ff_expert·(top_k + n_shared)
+
+Per-layer parameters are stacked on a leading ``layers`` axis, as in the
+JAX package, so the two parameter trees match leaf for leaf; a Python loop
+over that axis takes the place of ``lax.scan``. Training runs through
+``loss_fn``: the layer loop under activation checkpointing (``remat``, the
+JAX package's ``jax.checkpoint`` around the scanned layer) and the
+cross-entropy over sequence chunks (``_chunked_ce``), plus the MoE
+layers' router aux loss.
+
+The other families — ssm, hybrid, encdec, vlm — raise
 :class:`NotImplementedError` naming ROADMAP.md queue 1, item 12.
 """
 
@@ -24,25 +32,25 @@ import torch
 import torch.utils.checkpoint as tcp
 
 from . import attention as attn
+from . import moe as moe_mod
 from .config import ModelConfig
 from .layers import embed, nll, rmsnorm, softmax_cross_entropy, swiglu, unembed
-from .params import ParamDef
+from .params import ParamDef, leaf_paths, unflatten
 
 __all__ = ["model_defs", "forward", "forward_hidden", "prefill",
            "decode_step", "cache_defs", "loss_fn"]
 
 L = "layers"
 _NOT_PORTED = "is not ported yet: ROADMAP.md queue 1, item 12"
+_PORTED_FAMILIES = ("dense", "moe")
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is a dense GQA model, the family this package
-    runs."""
-    if cfg.family != "dense":
+    """Raise unless ``cfg`` is of a family this package runs (dense or
+    moe, with GQA or MLA attention)."""
+    if cfg.family not in _PORTED_FAMILIES:
         raise NotImplementedError(f"model family {cfg.family!r} ({cfg.name}) "
                                   f"{_NOT_PORTED}")
-    if cfg.mla is not None:
-        raise NotImplementedError(f"MLA attention ({cfg.name}) {_NOT_PORTED}")
 
 
 # ======================================================================
@@ -75,12 +83,55 @@ def _norm(D: int, n_layers: int | None) -> ParamDef:
     return ParamDef(lead + (D,), la + (None,), init="zeros")
 
 
-def _decoder_layer_defs(cfg: ModelConfig, n_layers: int) -> dict:
+def _mla_defs(cfg: ModelConfig, n_layers: int) -> dict:
+    m = cfg.mla
+    D, H = cfg.d_model, cfg.n_heads
+    o_scale = 0.02 / np.sqrt(2 * cfg.n_layers)
+    return {
+        "wq": ParamDef((n_layers, D, H * (m.qk_nope_dim + m.qk_rope_dim)),
+                       (L, "embed", "heads")),
+        "w_dkv": ParamDef((n_layers, D, m.kv_lora_rank + m.qk_rope_dim),
+                          (L, "embed", None)),
+        "w_uk": ParamDef((n_layers, m.kv_lora_rank, H * m.qk_nope_dim),
+                         (L, None, "heads")),
+        "w_uv": ParamDef((n_layers, m.kv_lora_rank, H * m.v_dim),
+                         (L, None, "heads")),
+        "wo": ParamDef((n_layers, H * m.v_dim, D), (L, "heads", "embed"),
+                       scale=o_scale),
+    }
+
+
+def _moe_defs(cfg: ModelConfig, n_layers: int) -> dict:
+    mo = cfg.moe
+    D, E, Fe = cfg.d_model, mo.n_routed, mo.d_ff_expert
+    Fs = mo.n_shared * Fe
+    o_scale = 0.02 / np.sqrt(2 * cfg.n_layers)
+    return {
+        "router": ParamDef((n_layers, D, E), (L, "embed", None)),
+        "w1": ParamDef((n_layers, E, D, Fe), (L, "expert", None, None)),
+        "w3": ParamDef((n_layers, E, D, Fe), (L, "expert", None, None)),
+        "w2": ParamDef((n_layers, E, Fe, D), (L, "expert", None, None),
+                       scale=o_scale),
+        "shared_gate": ParamDef((n_layers, D, Fs), (L, "embed", "ffn")),
+        "shared_up": ParamDef((n_layers, D, Fs), (L, "embed", "ffn")),
+        "shared_down": ParamDef((n_layers, Fs, D), (L, "ffn", "embed"),
+                                scale=o_scale),
+    }
+
+
+def _decoder_layer_defs(cfg: ModelConfig, n_layers: int, *, use_moe: bool,
+                        d_ff: int | None = None) -> dict:
+    """One stack of decoder layers: GQA or MLA, then MoE or a SwiGLU FFN of
+    width ``d_ff`` (default ``cfg.d_ff``)."""
     D = cfg.d_model
     o_scale = 0.02 / np.sqrt(2 * cfg.n_layers)
     d = {"norm1": _norm(D, n_layers), "norm2": _norm(D, n_layers)}
-    d.update(_attn_defs(cfg, n_layers))
-    d.update(_mlp_defs(D, cfg.d_ff, n_layers, o_scale))
+    d.update(_mla_defs(cfg, n_layers) if cfg.mla is not None
+             else _attn_defs(cfg, n_layers))
+    if use_moe:
+        d["moe"] = _moe_defs(cfg, n_layers)
+    else:
+        d.update(_mlp_defs(D, d_ff or cfg.d_ff, n_layers, o_scale))
     return d
 
 
@@ -93,7 +144,16 @@ def model_defs(cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         defs["unembed"] = ParamDef((D, V), ("embed", "vocab"))
-    defs["layers"] = _decoder_layer_defs(cfg, cfg.n_layers)
+    if cfg.family == "moe":
+        mo = cfg.moe
+        k = mo.first_k_dense
+        if k:
+            # the first-k dense layers use the "active-equivalent" FFN width
+            defs["dense_layers"] = _decoder_layer_defs(
+                cfg, k, use_moe=False, d_ff=mo.d_ff_expert * (mo.top_k + mo.n_shared))
+        defs["layers"] = _decoder_layer_defs(cfg, cfg.n_layers - k, use_moe=True)
+    else:
+        defs["layers"] = _decoder_layer_defs(cfg, cfg.n_layers, use_moe=False)
     return defs
 
 
@@ -107,19 +167,39 @@ def _layer_flags(cfg: ModelConfig) -> np.ndarray:
 
 
 def _layers(stacked: dict) -> list[dict]:
-    """Every layer's slice of the stacked parameters (views, one unbind
-    per leaf, whose backward stacks the layers' gradients once)."""
-    keys = sorted(stacked)
-    return [dict(zip(keys, ws))
-            for ws in zip(*(stacked[k].unbind(0) for k in keys))]
+    """Every layer's slice of the stacked parameters, nested as they are
+    (views, one unbind per leaf, whose backward stacks the layers'
+    gradients once)."""
+    paths, ws = zip(*((path, t.unbind(0)) for path, t in leaf_paths(stacked)))
+    return [unflatten(dict(zip(paths, layer))) for layer in zip(*ws)]
+
+
+def _stacks(cfg: ModelConfig) -> list[tuple[str, np.ndarray]]:
+    """The stacked layer groups in the order they run, each with its
+    layers' ``is_global`` flags: the moe family's ``dense_layers`` (the
+    first ``first_k_dense``), then ``layers``."""
+    flags = _layer_flags(cfg)
+    k = cfg.moe.first_k_dense if cfg.family == "moe" else 0
+    groups = [("dense_layers", flags[:k])] if k else []
+    return groups + [("layers", flags[k:])]
+
+
+def _ffn(p, h, cfg: ModelConfig):
+    """The layer's FFN: MoE where it has one, else SwiGLU (no aux loss)."""
+    if "moe" in p:
+        return moe_mod.moe_ffn(p["moe"], h, cfg)
+    return swiglu(p, h), torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 def _attn_layer_train(p, x, cfg: ModelConfig, is_global, pos):
-    """One decoder layer (attention + FFN); a dense layer has no aux loss."""
+    """One decoder layer (attention + FFN/MoE) -> (x, aux)."""
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
-    x = x + attn.gqa_attention(p, h, cfg, is_global=is_global, pos=pos)
-    h2 = rmsnorm(x, p["norm2"], cfg.norm_eps)
-    return x + swiglu(p, h2)
+    if cfg.mla is not None:
+        x = x + attn.mla_attention(p, h, cfg, pos=pos)
+    else:
+        x = x + attn.gqa_attention(p, h, cfg, is_global=is_global, pos=pos)
+    f, aux = _ffn(p, rmsnorm(x, p["norm2"], cfg.norm_eps), cfg)
+    return x + f, aux
 
 
 # The weight GEMMs of a layer (``x @ w`` on (B,S,D) activations lowers to
@@ -164,9 +244,11 @@ def forward_hidden(params: dict, batch: dict, cfg: ModelConfig,
     x = embed(params["embed"], batch["tokens"], adt)
     pos = torch.arange(x.shape[1], device=x.device)
     layer = _remat(functools.partial(_attn_layer_train, cfg=cfg, pos=pos), remat)
-    for p, fl in zip(_layers(params["layers"]), _layer_flags(cfg)):
-        x = layer(p, x, is_global=bool(fl))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for name, flags in _stacks(cfg):
+        for p, fl in zip(_layers(params[name]), flags):
+            x, a = layer(p, x, is_global=bool(fl))
+            aux = aux + a
     return rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
 
 
@@ -235,35 +317,49 @@ def loss_fn(params, batch, cfg: ModelConfig, remat: bool | str = True):
 # ======================================================================
 
 def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
-    """ParamDef tree for the decode cache (zeros, dtype chosen at init)."""
+    """ParamDef tree for the decode cache (zeros, dtype chosen at init):
+    per stack of layers, GQA's ``k`` and ``v`` or MLA's compressed
+    ``c_kv`` and ``k_rope``."""
     check_ported(cfg)
+    m = cfg.mla
 
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
-    axes = (L, "batch", "seq", "kv_heads", None)
-    return {"layers": {"k": ParamDef(shape, axes, init="zeros"),
-                       "v": ParamDef(shape, axes, init="zeros")}}
+    def stack(n):
+        if m is not None:
+            axes = (L, "batch", "seq", None)
+            return {"c_kv": ParamDef((n, batch, max_len, m.kv_lora_rank), axes,
+                                     init="zeros"),
+                    "k_rope": ParamDef((n, batch, max_len, m.qk_rope_dim), axes,
+                                       init="zeros")}
+        shape = (n, batch, max_len, cfg.n_kv_heads, cfg.hd)
+        axes = (L, "batch", "seq", "kv_heads", None)
+        return {"k": ParamDef(shape, axes, init="zeros"),
+                "v": ParamDef(shape, axes, init="zeros")}
+
+    return {name: stack(len(flags)) for name, flags in _stacks(cfg)}
 
 
 def _attn_layer_decode(p, x, cl, cur, cfg, is_global):
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
-    a, cl_new = attn.gqa_decode(p, h, cl, cur, cfg, is_global=is_global)
+    if cfg.mla is not None:
+        a, cl_new = attn.mla_decode(p, h, cl, cur, cfg)
+    else:
+        a, cl_new = attn.gqa_decode(p, h, cl, cur, cfg, is_global=is_global)
     x = x + a
-    h2 = rmsnorm(x, p["norm2"], cfg.norm_eps)
-    return x + swiglu(p, h2), cl_new
+    f, _ = _ffn(p, rmsnorm(x, p["norm2"], cfg.norm_eps), cfg)
+    return x + f, cl_new
 
 
 def decode_step(params: dict, cache: dict, batch: dict, cfg: ModelConfig):
     """One-token decode. batch: {tokens:(B,1), cur: int} -> (logits, cache).
 
-    The cache is written in place (position ``cur`` of every layer) and
-    returned."""
+    The cache is written in place (position ``cur`` of every layer, through
+    the per-layer views ``_layers`` gives) and returned."""
     check_ported(cfg)
     adt = getattr(torch, cfg.activation_dtype)
     cur = int(batch["cur"])
     x = embed(params["embed"], batch["tokens"], adt)
-    layers = cache["layers"]
-    for i, (p, fl) in enumerate(zip(_layers(params["layers"]), _layer_flags(cfg))):
-        cl = {"k": layers["k"][i], "v": layers["v"][i]}
-        x, _ = _attn_layer_decode(p, x, cl, cur, cfg, bool(fl))
+    for name, flags in _stacks(cfg):
+        for p, cl, fl in zip(_layers(params[name]), _layers(cache[name]), flags):
+            x, _ = _attn_layer_decode(p, x, cl, cur, cfg, bool(fl))
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return _mask_pad(unembed(_unembed_w(params, cfg), x), cfg), cache

@@ -13,6 +13,7 @@ any module, which the trainer does); the serving methods run under
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -22,7 +23,24 @@ from . import transformer as tfm
 from .config import ModelConfig
 from .params import _fill, count_params, init_params, leaf_paths
 
-__all__ = ["Model"]
+__all__ = ["Model", "active_params"]
+
+
+def active_params(cfg: ModelConfig) -> int:
+    """Active params per token (the JAX package's MoE discount) for 6ND
+    model flops: of each routed expert weight (``moe/w1``, ``w2``, ``w3``),
+    only top_k of n_routed experts count. From the defs alone, so it counts
+    full-width models that are never allocated."""
+    defs = tfm.model_defs(cfg)
+    total = count_params(defs)
+    if cfg.family != "moe":
+        return total
+    mo = cfg.moe
+    inactive = 0
+    for path, d in leaf_paths(defs):
+        if len(path) >= 2 and path[-2] == "moe" and path[-1] in ("w1", "w2", "w3"):
+            inactive += int(np.prod(d.shape)) * (mo.n_routed - mo.top_k) // mo.n_routed
+    return total - inactive
 
 
 class Model(nn.Module):
@@ -76,10 +94,7 @@ class Model(nn.Module):
         return count_params(self.defs())
 
     def n_active_params(self) -> int:
-        """Active params per token for 6ND model flops: every parameter of a
-        dense model (the JAX package's MoE discount comes with the MoE
-        family, ROADMAP.md queue 1, item 12)."""
-        return self.n_params()
+        return active_params(self.cfg)
 
     # ---- training
     def loss(self, batch: dict, remat: bool | str = True):

@@ -1019,11 +1019,186 @@ def _recipe_train() -> dict[str, np.ndarray]:
     return res
 
 
+# ----------------------------------------- the other decoder LMs
+# The dense archs (gemma3-1b, deepseek-coder-33b, phi4-mini-3.8b) with
+# temperature sampling, and the moe archs (MoE and MLA), at their SMOKE
+# sizes (f32 activations) with the flash kernel's path on, as the card
+# serves them. Each recipe writes every arch's JAX parameter tree, which
+# crosses by ``interop.lm_params_from_numpy``.
+
+DENSE_ARCHS = ("gemma3-1b", "deepseek-coder-33b", "phi4-mini-3.8b")
+MOE_ARCHS = ("deepseek-v2-lite-16b", "deepseek-moe-16b")
+# sampled decode: prompts of GREEDY_P, GREEDY_NEW tokens at each
+# temperature, the step's key jax.random.fold_in(PRNGKey(SAMPLE_SEED), t)
+SAMPLE_TEMPS = (0.7, 1.3)
+SAMPLE_SEED = 11
+# a capacity factor at which the SMOKE MoE layer drops assignments:
+# C = ceil(16·2/8·0.5) = 2 places per expert for 32 assignments a row
+MOE_DROP_CF = 0.5
+MOE_X_SEED = 13
+
+
+def arch_configs(pkg: str, archs) -> dict:
+    """SMOKE of each arch from package ``pkg``'s registry, flash path on."""
+    import dataclasses
+    import importlib
+
+    reg = importlib.import_module(f"{pkg}.configs.registry")
+    return {a: dataclasses.replace(reg.get_smoke(a), use_flash_kernel=True)
+            for a in archs}
+
+
+def tree_of(ref: dict, prefix: str) -> dict:
+    """The tree of nested dicts that ``put_tree`` wrote under ``prefix``."""
+    tree: dict = {}
+    pre = prefix + "/"
+    for key, arr in ref.items():
+        if key.startswith(pre):
+            *head, leaf = key[len(pre):].split("/")
+            node = tree
+            for k in head:
+                node = node.setdefault(k, {})
+            node[leaf] = arr
+    return tree
+
+
+def moe_input(cfg) -> np.ndarray:
+    """(LM_B, LM_S, d_model) f32 normals: the input of one MoE layer."""
+    rng = np.random.default_rng(MOE_X_SEED)
+    return rng.normal(size=(LM_B, LM_S, cfg.d_model)).astype(np.float32)
+
+
+def _lm_common(res: dict, arch: str, cfg, m, params) -> None:
+    """Parameters, forward, prefill, decode steps and greedy tokens of one
+    arch under ``arch/``."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.serve import greedy_decode
+
+    put_tree(res, f"params/{arch}", params)
+    toks = jnp.asarray(lm_tokens(cfg.vocab, (LM_B, LM_S), LM_SEED))
+    batch = {"tokens": toks, "labels": toks}
+    logits, aux = m.forward(params, batch)
+    res[f"forward/{arch}"] = np.asarray(logits)
+    res[f"forward_aux/{arch}"] = np.asarray(aux)
+    res[f"prefill/{arch}"] = np.asarray(m.prefill(params, batch))
+    cache = m.init_cache(LM_B, LM_S, jnp.float32)
+    dec = jax.jit(m.decode)
+    steps = []
+    for t in range(LM_S):
+        lg, cache = dec(params, cache, {"tokens": toks[:, t:t + 1],
+                                        "cur": jnp.asarray(t, jnp.int32)})
+        steps.append(np.asarray(lg[:, 0]))
+    res[f"decode/{arch}"] = np.stack(steps)
+    prompts = jnp.asarray(lm_tokens(cfg.vocab, (LM_B, GREEDY_P), LM_SEED + 1))
+    res[f"greedy/{arch}"] = np.asarray(greedy_decode(
+        m, params, prompts, GREEDY_NEW, GREEDY_P + GREEDY_NEW + 1))
+
+
+def _recipe_lm_archs() -> dict[str, np.ndarray]:
+    """The dense archs: full-width parameter counts; SMOKE parameters,
+    forward, prefill, decode, greedy tokens; a sampled decode at each of
+    SAMPLE_TEMPS through ``make_serve_step(sample=True)`` with the Gumbel
+    noise ``jax.random.categorical`` draws from each step's key; one
+    ``make_train_step`` step."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs.registry import get_config
+    from repro.data import TokenPipeline
+    from repro.models import build_model
+    from repro.serve import make_serve_step
+    from repro.train import OptConfig, TrainConfig
+    from repro.train.optimizer import init_opt_state
+    from repro.train.train_step import make_train_step
+
+    res = {}
+    for arch, cfg in arch_configs("repro", DENSE_ARCHS).items():
+        res[f"n_params/{arch}"] = np.asarray(build_model(get_config(arch)).n_params())
+        m = build_model(cfg)
+        params = m.init(jax.random.PRNGKey(LM_SEED))
+        _lm_common(res, arch, cfg, m, params)
+        step = jax.jit(lambda p, c, b, temp: make_serve_step(
+            m, sample=True, temperature=temp)(p, c, b))
+        prompts = jnp.asarray(lm_tokens(cfg.vocab, (LM_B, GREEDY_P), LM_SEED + 2))
+        for temp in SAMPLE_TEMPS:
+            cache = m.init_cache(LM_B, GREEDY_P + GREEDY_NEW, jnp.float32)
+            tok, noise, out = prompts[:, :1], [], []
+            for t in range(GREEDY_P + GREEDY_NEW - 1):
+                key = jax.random.fold_in(jax.random.PRNGKey(SAMPLE_SEED), t)
+                noise.append(np.asarray(jax.random.gumbel(
+                    key, (LM_B, cfg.vocab_padded), jnp.float32)))
+                nxt, cache = step(params, cache, {
+                    "tokens": tok, "cur": jnp.asarray(t, jnp.int32), "rng": key},
+                    temp)
+                tok = prompts[:, t + 1:t + 2] if t + 1 < GREEDY_P else nxt[:, None]
+                out.append(np.asarray(nxt))
+            res[f"sample/{arch}/{temp}/gumbel"] = np.stack(noise)
+            res[f"sample/{arch}/{temp}/tokens"] = np.stack(out, axis=1)
+        tstep = make_train_step(m, TrainConfig(opt=OptConfig(**STEP_OPT)))
+        b = {k: jnp.asarray(a) for k, a in
+             TokenPipeline(vocab=cfg.vocab, **STEP_PIPE).batch_at(0).items()}
+        p1, _, metrics = tstep(params, init_opt_state(params), b)
+        res[f"train/{arch}/loss"] = np.asarray(metrics["loss"])
+        res[f"train/{arch}/grad_norm"] = np.asarray(metrics["grad_norm"])
+        put_tree(res, f"train/{arch}/params", p1)
+    return res
+
+
+def _recipe_lm_moe() -> dict[str, np.ndarray]:
+    """The moe archs: full-width parameter and active-parameter counts;
+    SMOKE parameters, forward (with its aux loss), prefill, decode, greedy
+    tokens; ``loss_fn``'s ce and aux and its gradients; one MoE layer at
+    capacity factor MOE_DROP_CF (its output, aux and dropped count)."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs.registry import get_config
+    from repro.models import build_model
+    from repro.models import moe as jmoe
+
+    res = {}
+    for arch, cfg in arch_configs("repro", MOE_ARCHS).items():
+        full = build_model(get_config(arch))
+        res[f"n_params/{arch}"] = np.asarray(full.n_params())
+        res[f"n_active/{arch}"] = np.asarray(full.n_active_params())
+        m = build_model(cfg)
+        params = m.init(jax.random.PRNGKey(LM_SEED))
+        _lm_common(res, arch, cfg, m, params)
+        batch = {k: jnp.asarray(a) for k, a in
+                 loss_batch(cfg.vocab, 32, False).items()}
+        (loss, (ce, aux)), grads = jax.value_and_grad(
+            lambda p: m.loss(p, batch, remat=True), has_aux=True)(params)
+        res[f"loss/{arch}/ce"] = np.asarray(ce)
+        res[f"loss/{arch}/aux"] = np.asarray(aux)
+        put_tree(res, f"grads/{arch}", grads)
+        drop = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=MOE_DROP_CF))
+        p0 = jax.tree.map(lambda a: a[0], params["layers"]["moe"])
+        x = jnp.asarray(moe_input(cfg))
+        out, aux = jmoe.moe_ffn(p0, x, drop)
+        res[f"moe_drop/{arch}/out"] = np.asarray(out)
+        res[f"moe_drop/{arch}/aux"] = np.asarray(aux)
+        mo = drop.moe
+        C = max(int(np.ceil(LM_S * mo.top_k / mo.n_routed * mo.capacity_factor)), 1)
+        logits = jnp.einsum("bsd,de->bse", x, p0["router"])
+        _, ids = jax.lax.top_k(jax.nn.softmax(logits, axis=-1), mo.top_k)
+        keep = jax.vmap(lambda xr, ir: jmoe._dispatch_row(
+            xr, None, ir, mo.n_routed, mo.top_k, C)[1][4])(x, ids)
+        res[f"moe_drop/{arch}/dropped"] = np.asarray((~keep).sum())
+        res[f"moe_drop/{arch}/C"] = np.asarray(C)
+    return res
+
+
 RECIPES = {"core": _recipe_core, "gol3d": _recipe_gol3d, "pack": _recipe_pack,
            "halo": _recipe_halo, "distributed": _recipe_distributed,
            "flash": _recipe_flash, "lm": _recipe_lm, "ckpt": _recipe_ckpt,
            "xrun": _recipe_xrun, "serve_cli": _recipe_serve_cli,
-           "train": _recipe_train}
+           "train": _recipe_train, "lm_archs": _recipe_lm_archs,
+           "lm_moe": _recipe_lm_moe}
 
 
 if __name__ == "__main__":

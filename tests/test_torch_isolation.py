@@ -32,7 +32,12 @@ def test_import_pulls_in_no_jax():
             "repro_torch.serve.service, repro_torch.train, "
             "repro_torch.train.optimizer, repro_torch.train.train_step, "
             "repro_torch.train.trainer, repro_torch.data, "
-            "repro_torch.data.pipeline, repro_torch.launch.train, sys; "
+            "repro_torch.data.pipeline, repro_torch.launch.train, "
+            "repro_torch.models.moe, repro_torch.configs.gemma3_1b, "
+            "repro_torch.configs.deepseek_coder_33b, "
+            "repro_torch.configs.phi4_mini_3p8b, "
+            "repro_torch.configs.deepseek_v2_lite_16b, "
+            "repro_torch.configs.deepseek_moe_16b, sys; "
             "bad = [m for m in sys.modules if m in ('jax', 'repro', 'ml_dtypes', "
             "'benchmarks') or m.startswith(('jax.', 'repro.', 'ml_dtypes.', "
             "'benchmarks.'))]; "
@@ -57,7 +62,9 @@ def test_sources_name_no_jax_import():
             "smollm_360m.py", "serve_step.py", "serve.py", "ckpt.py",
             "runner.py", "faults.py", "elastic.py", "roi.py",
             "service.py", "optimizer.py", "train_step.py", "trainer.py",
-            "pipeline.py", "train.py"} <= names
+            "pipeline.py", "train.py", "moe.py", "gemma3_1b.py",
+            "deepseek_coder_33b.py", "phi4_mini_3p8b.py",
+            "deepseek_v2_lite_16b.py", "deepseek_moe_16b.py"} <= names
     assert len(files) > 10
     for f in files:
         assert not pat.search(f.read_text()), f
