@@ -198,7 +198,7 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    S=4096, D=64) held against its plain version (one bf16 unit in the
    last place plus 1e-5) and timed beside it and SDPA. Its readings go into the kernels line under
    ``flash_attention_fwd.training``;
-6. the other decoder LMs (``archs_phase``, the config modules of
+6. the other LMs (``archs_phase``, the config modules of
    ``ARCH_MODULES``, sizes ``CHIP_*`` in each), one at a time at full
    width with seeded weights, bf16 activations and f32 weights, each freed
    before the next: gemma3-1b (26 layers), phi4-mini-3.8b (32),
@@ -211,7 +211,8 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    ``greedy_decode`` of 32 new tokens for 4 requests (no launch), decode's
    logits at the last prompt position against the prefill's in f32
    activations (within 1e-4; in bf16 reported), prefill ms and tokens/s
-   and decode ms per step (median of 5 after a warm-up), peak memory.
+   (median of 5 after a warm-up) and decode ms per step (median of 3),
+   peak memory.
    Where flash runs: the kernel alone at that prefill's folded shape
    (BH=96, 224 and 64; S=2048, D=128, bf16, causal) against its plain
    version (one bf16 unit in the last place plus 1e-5), timed beside it,
@@ -226,7 +227,23 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    drops at the config's capacity factor (1.25), decode against prefill
    at a capacity factor where none drops, and 2 layers (the dense one and
    one MoE layer) in f32 at B=1, S=256 on the card against the same on
-   the CPU (1e-4). Its readings go into the kernels line under
+   the CPU (1e-4). mamba2-2.7b (64 layers: no kernel), zamba2-1.2b (38
+   Mamba2 layers; its shared GQA block's 6 applications are its flash
+   launches, BH=128, D=64), whisper-small (12 + 12 layers, frames of
+   (4, 1500, 768); the decoder's 12 layers launch flash, BH=48, D=64; the
+   bidirectional encoder and the cross-attention run plain softmax
+   attention) and internvl2-76b (8 of 80 layers: its f32 weights would
+   take 282.3 GB; 256 patches + 1792 tokens, so flash runs at Sq=2048,
+   BH=256, D=128, GQA rep 8). The ssm and hybrid pair decode with the
+   prefill over 256 positions (the prefill takes a multiple of the SSD
+   chunk), hold one Mamba2 layer in f32 on the card against the CPU
+   (1e-4), and time one ``long_500k`` decode step at B=1 (mamba2's f32
+   state; zamba2's bf16 cache of 524,288 positions, logits finite);
+   whisper's pair fills the cross cache from the encoder's output on the
+   prompts' frames; internvl2's text-only decode is not comparable with
+   its prefill, so 2 layers of its f32 prefill are held card against CPU
+   (1e-4 per unit of its logits' std, 1.8). Its readings go into the
+   kernels line under
    ``flash_attention_fwd.archs``.
 
 It prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
@@ -317,11 +334,13 @@ TRAIN_F32_LOSS_RTOL, TRAIN_F32_GRAD_RTOL = 1e-5, 1e-4
 GEMM_KERNEL = re.compile(r"gemm|nvjet|xmma|cutlass", re.I)
 # the config modules (under repro_torch.configs) archs_phase serves, in order
 ARCH_MODULES = ("gemma3_1b", "phi4_mini_3p8b", "deepseek_coder_33b",
-                "deepseek_moe_16b", "deepseek_v2_lite_16b")
-# a MoE model's logits in f32 activations on the card against the same
-# weights on the CPU (2 layers at full width): the same f32 arithmetic
-# summed in other orders, as LM_F32_LOGIT_TOL
-MOE_CARD_CPU_TOL = 1e-4
+                "deepseek_moe_16b", "deepseek_v2_lite_16b", "mamba2_2p7b",
+                "zamba2_1p2b", "whisper_small", "internvl2_76b")
+# f32 activations on the card against the same weights and input on the
+# CPU at full width (a MoE model's stages, a Mamba2 layer, the VLM's
+# 2-layer prefill, there per unit of its logits' std where that is above
+# 1): the same f32 arithmetic summed in other orders, as LM_F32_LOGIT_TOL
+CARD_CPU_TOL = 1e-4
 # a checkpoint every CKPT_INTERVAL steps on the checkpointed main path
 CKPT_INTERVAL = 4
 
@@ -708,7 +727,7 @@ def train_phase(dev, flash_err) -> dict:
 
 
 def archs_phase(dev, flash_err) -> dict:
-    """The other decoder LMs at full width, one at a time (each one's
+    """The other LMs at full width, one at a time (each one's
     tensors freed before the next): the config modules of
     ``ARCH_MODULES`` at the depth ``CHIP_LAYERS`` of each, bf16
     activations, f32 weights from a seeded ``torch.Generator`` and
@@ -738,10 +757,11 @@ def archs_phase(dev, flash_err) -> dict:
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import ops as kops
     from repro_torch.models import Model
+    from repro_torch.models import mamba2 as tmamba
     from repro_torch.models import moe as tmoe
     from repro_torch.models import transformer as tfm
     from repro_torch.models.layers import embed, rmsnorm, unembed
-    from repro_torch.models.params import init_params, tree_map
+    from repro_torch.models.params import init_params, leaves as tree_leaves, tree_map
     from repro_torch.serve import greedy_decode, make_serve_step
     from repro_torch.serve.serve_step import gumbel_noise
 
@@ -767,23 +787,41 @@ def archs_phase(dev, flash_err) -> dict:
 
     def first_layers(params, cfg, n):
         """The parameters of ``cfg``'s first ``n`` layers (views): every
-        dense layer of the moe family, then the rest from ``layers``."""
+        dense layer of the moe family, then the rest from ``layers``; the
+        other trees (a hybrid's ``shared_block``, whose applications the
+        cut config recounts, an encoder's ``enc_layers``) whole."""
         k = cfg.moe.first_k_dense if cfg.family == "moe" else 0
         out = {**params, "layers": tree_map(
             lambda t: t[:n - k], params["layers"])}
         return out, dataclasses.replace(cfg, n_layers=n)
 
-    def decode_vs_prefill(params_, c, tokens):
+    def flash_launches(cfg) -> int:
+        """``sm90`` flash launches in one prefill of ``cfg``: one per
+        causal GQA attention without a window (the decoder's layers, a
+        hybrid's shared-block applications); none for MLA, windows, the
+        ssm family, an encoder or a cross-attention."""
+        if cfg.family == "ssm" or cfg.mla is not None or cfg.sliding_window is not None:
+            return 0
+        return tfm._n_shared_apps(cfg) if cfg.family == "hybrid" else cfg.n_layers
+
+    def decode_vs_prefill(params_, c, tokens, frames=None):
         """max |decode's last logits - prefill's| and argmax agreement,
-        the cache filled by teacher-forced steps over ``tokens``."""
+        the cache filled by teacher-forced steps over ``tokens`` (an
+        encdec model's cross cache first from the encoder's output on
+        ``frames``, which its prefill reads too)."""
         n_b, n_t = tokens.shape
+        extra = {} if frames is None else {"frames": frames}
         with torch.no_grad():
             cache = init_params(tfm.cache_defs(c, n_b, n_t), None,
                                 torch.float32, dev)
+            if frames is not None:
+                ek, ev = tfm._enc_kv_all(params_, tfm._encode(params_, frames, c, False), c)
+                cache["cross"]["k"].copy_(ek)
+                cache["cross"]["v"].copy_(ev)
             for t in range(n_t):
                 dec, cache = tfm.decode_step(params_, cache, {
                     "tokens": tokens[:, t:t + 1], "cur": t}, c)
-            pre = tfm.prefill(params_, {"tokens": tokens}, c)
+            pre = tfm.prefill(params_, {"tokens": tokens, **extra}, c)
         return ((dec[:, 0] - pre).abs().max().item(),
                 int((dec[:, 0].argmax(-1) == pre.argmax(-1)).sum()))
 
@@ -802,13 +840,18 @@ def archs_phase(dev, flash_err) -> dict:
                                seed=0, device=dev)
         torch.cuda.reset_peak_memory_stats()
         logits, counts, by_design = counted(lambda: model.prefill(batch))
-        n_flash = cfg.n_layers if cfg.mla is None and cfg.sliding_window is None else 0
+        n_flash = flash_launches(cfg)
         check(counts == {**{n: 0 for n in counts}, "flash_attention_fwd": n_flash},
               f"{cfg.name} prefill launches {counts}, want {n_flash} flash_attention_fwd")
         check(by_design == {"sm90": n_flash, "simple": 0},
               f"{cfg.name} prefill flash launches by design {by_design}")
-        check(logits.shape == (B, cfg.vocab) and bool(torch.isfinite(logits).all()),
+        check(logits.shape == (B, cfg.vocab_padded) and bool(torch.isfinite(logits).all()),
               f"{cfg.name} prefill logits not finite or misshapen")
+        if cfg.family == "encdec":
+            log(f"archs {cfg.name}: the encoder ({cfg.encdec.n_enc_layers} layers, "
+                f"bidirectional over {tuple(batch['frames'].shape)} frames) and the "
+                f"cross-attention run plain softmax attention, no kernel; the "
+                f"{n_flash} flash launches are the decoder's causal self-attention")
         r.update(flash_launches=n_flash, by_design=by_design,
                  logit_std=logits.std().item())
 
@@ -821,8 +864,11 @@ def archs_phase(dev, flash_err) -> dict:
         # tokens has 2 places an expert at the config's capacity factor, so
         # the pair runs where nothing drops
         B_D, P_D, N_D = sz.CHIP_DECODE_BATCH, sz.CHIP_PROMPT_LEN, sz.CHIP_NEW_TOKENS
-        prompts = concrete_batch(cfg, ShapeSpec("chip_decode", P_D, B_D, "prefill"),
-                                 seed=1, device=dev)["tokens"]
+        n_patches = cfg.vlm.n_patches if cfg.family == "vlm" else 0
+        prompt_batch = concrete_batch(
+            cfg, ShapeSpec("chip_decode", n_patches + P_D, B_D, "prefill"),
+            seed=1, device=dev)
+        prompts = prompt_batch["tokens"]
         toks, counts, _ = counted(lambda: greedy_decode(model, prompts, N_D,
                                                         P_D + N_D + 1))
         check(not any(counts.values()), f"{cfg.name} greedy_decode launched {counts}")
@@ -835,13 +881,26 @@ def archs_phase(dev, flash_err) -> dict:
                 cfg.moe, capacity_factor=cfg.moe.n_routed / cfg.moe.top_k))
             check(tmoe.capacity(P_D, pair_cfg) == P_D, "no-drop capacity")
 
-        bf_err, bf_agree = decode_vs_prefill(params, pair_cfg, prompts)
-        f32_err, f32_agree = decode_vs_prefill(
-            params, dataclasses.replace(pair_cfg, activation_dtype="float32"), prompts)
-        check(f32_err <= LM_F32_LOGIT_TOL,
-              f"{cfg.name} f32 decode vs prefill max |d| {f32_err}")
-        r.update(decode_vs_prefill=dict(bf16=bf_err, bf16_argmax_agree=bf_agree,
-                                        f32=f32_err, f32_argmax_agree=f32_agree))
+        # the ssm and hybrid prefills take a multiple of the SSD chunk, so
+        # their pair runs over CHIP_CHECK_SEQ tokens; the vlm's decode (text
+        # only) is not comparable with its prefill (patches prepended), so
+        # it is held card against CPU below instead
+        pair_tokens = prompts
+        if hasattr(sz, "CHIP_CHECK_SEQ"):
+            pair_tokens = concrete_batch(
+                cfg, ShapeSpec("chip_check", sz.CHIP_CHECK_SEQ, B_D, "prefill"),
+                seed=1, device=dev)["tokens"]
+        if cfg.family != "vlm":
+            frames = prompt_batch.get("frames")
+            bf_err, bf_agree = decode_vs_prefill(params, pair_cfg, pair_tokens, frames)
+            f32_err, f32_agree = decode_vs_prefill(
+                params, dataclasses.replace(pair_cfg, activation_dtype="float32"),
+                pair_tokens, frames)
+            check(f32_err <= LM_F32_LOGIT_TOL,
+                  f"{cfg.name} f32 decode vs prefill max |d| {f32_err}")
+            r.update(decode_vs_prefill=dict(
+                positions=pair_tokens.shape[1], bf16=bf_err, bf16_argmax_agree=bf_agree,
+                f32=f32_err, f32_argmax_agree=f32_agree))
 
         if cfg.family == "moe":
             # the share of assignments the prefill drops at the config's
@@ -866,24 +925,30 @@ def archs_phase(dev, flash_err) -> dict:
                      dropped_share=sum(d for d, _ in drops) / sum(n for _, n in drops),
                      dropped_share_by_layer=[d / n for d, n in drops])
 
-        # timings: prefill and decode (host clock, median of 5 after a
-        # warm-up), then one profiled prefill: where its device time goes
+        # timings: prefill (host clock, median of 5 after a warm-up) and
+        # decode (median of 3: a greedy_decode is 47 host-bound steps, and
+        # nine archs' repeats are a minute of the script), then one
+        # profiled prefill: where its device time goes
         r["prefill_ms"] = walls_ms(lambda: model.prefill(batch))
         r["prefill_profile"] = profile_shares(lambda: model.prefill(batch))
         r["tokens_per_s"] = B * S / r["prefill_ms"] * 1e3
         steps = P_D + N_D - 1
         r["decode_ms_per_step"] = walls_ms(
-            lambda: greedy_decode(model, prompts, N_D, P_D + N_D + 1)) / steps
+            lambda: greedy_decode(model, prompts, N_D, P_D + N_D + 1), n=3) / steps
         r["peak_bytes"] = torch.cuda.max_memory_allocated() - base_mem
+        dp = r.get("decode_vs_prefill")
         log(f"archs {cfg.name} ({cfg.n_layers} of {sz.CONFIG.n_layers} layers, "
             f"{r['n_params'] / 1e9:.3f} B params): prefill B={B} S={S} "
             f"{r['prefill_ms']:.3f} ms ({r['tokens_per_s']:.0f} tokens/s), "
             f"flash launches {n_flash} (by design {by_design}); greedy_decode "
-            f"{B_D}x{N_D} {r['decode_ms_per_step']:.3f} ms per step; decode vs "
-            f"prefill max |d| {f32_err:.4g} in f32 (argmax {f32_agree}/{B_D}), "
-            f"{bf_err:.4g} in bf16 (argmax {bf_agree}/{B_D}"
-            + (f", capacity factor {pair_cfg.moe.capacity_factor:g}" if cfg.family == "moe" else "")
-            + f"); peak {r['peak_bytes'] / 2**30:.2f} GiB above the phase's base"
+            f"{B_D}x{N_D} {r['decode_ms_per_step']:.3f} ms per step; "
+            + (f"decode vs prefill over {dp['positions']} positions max |d| "
+               f"{dp['f32']:.4g} in f32 (argmax {dp['f32_argmax_agree']}/{B_D}), "
+               f"{dp['bf16']:.4g} in bf16 (argmax {dp['bf16_argmax_agree']}/{B_D}"
+               + (f", capacity factor {pair_cfg.moe.capacity_factor:g}"
+                  if cfg.family == "moe" else "") + ")"
+               if dp else "decode (text only) not comparable with the prefill")
+            + f"; peak {r['peak_bytes'] / 2**30:.2f} GiB above the phase's base"
             + (f"; prefill drops {100 * r['dropped_share']:.3f}% of assignments "
                f"at C={r['capacity']} (per layer "
                + ", ".join(f"{100 * x:.2f}" for x in r["dropped_share_by_layer"]) + ")"
@@ -906,7 +971,8 @@ def archs_phase(dev, flash_err) -> dict:
             # prefill's first layers in f32 activations against the same
             # with the plain version in the kernel's place
             gen = torch.Generator(device=dev).manual_seed(3)
-            H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+            acfg = tfm._shared_cfg(cfg) if cfg.family == "hybrid" else cfg
+            H, KV, D = acfg.n_heads, acfg.n_kv_heads, acfg.hd
             fq, fk, fv = kops._fold_gqa(*(
                 torch.randn((B, h, S, D), generator=gen, device=dev,
                             dtype=torch.bfloat16) for h in (H, KV, KV)))
@@ -935,7 +1001,8 @@ def archs_phase(dev, flash_err) -> dict:
                 bound_ms=1e3 * max(t_o, t_b),
                 bound_by="operations" if t_o >= t_b else "bytes")
             log(f"flash_attention_fwd at {cfg.name}'s prefill {tuple(fl['shape'])} bf16 "
-                f"causal, Hopper design: max |d| against the plain version {err:.3g}; "
+                f"causal (GQA rep {H // KV}), Hopper design: max |d| against the plain "
+                f"version {err:.3g}; "
                 f"{fl['ms']:.4f} ms ({ops_ / fl['ms'] / 1e9:.1f} TFLOP/s); plain "
                 f"{fl['plain_ms']:.3f} ms; SDPA {fl['library_ms']:.4f} ms; bound "
                 f"{fl['bound_ms']:.4f} ms by {fl['bound_by']}")
@@ -1074,7 +1141,7 @@ def archs_phase(dev, flash_err) -> dict:
                            for a, b in zip(seen_card, seen_e2e))
             e2e_err = (lg_card - lg_e2e).abs()
             worst = divmod(int(e2e_err.argmax()), lg_card.shape[-1])
-            check(max(stage_errs) <= MOE_CARD_CPU_TOL,
+            check(max(stage_errs) <= CARD_CPU_TOL,
                   f"{cfg.name} f32 stages card vs CPU on one input max |d| {stage_errs}")
             r["card_vs_cpu"] = dict(layers=c2.n_layers, seq=sz.CHIP_CPU_SEQ,
                                     stage_max_abs_err=stage_errs,
@@ -1088,6 +1155,76 @@ def archs_phase(dev, flash_err) -> dict:
                 f"{worst[1]}; positions over 1e-4: "
                 f"{int((e2e_err.amax(-1) > 1e-4).sum())}), tokens routed to other "
                 f"experts {rerouted}; logit std {lg_cpu.std().item():.4g}")
+
+        if cfg.family in ("ssm", "hybrid"):
+            # no kernel holds Mamba2: its first layer in f32 on the card
+            # against the same on the CPU, on one input of two SSD chunks
+            c32 = dataclasses.replace(cfg, activation_dtype="float32")
+            p0 = {k: v[0] for k, v in params["layers"].items()}
+            x = torch.randn((1, sz.CHIP_CPU_SEQ, cfg.d_model), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(4))
+            with torch.no_grad():
+                y_card = tmamba.mamba2_block(p0, x, c32).cpu()
+                y_cpu = tmamba.mamba2_block({k: v.cpu() for k, v in p0.items()},
+                                            x.cpu(), c32)
+            m_err = (y_card - y_cpu).abs().max().item()
+            check(bool(torch.isfinite(y_card).all()) and m_err <= CARD_CPU_TOL,
+                  f"{cfg.name} Mamba2 layer card vs CPU max |d| {m_err}")
+            r["mamba_layer_card_vs_cpu"] = dict(seq=sz.CHIP_CPU_SEQ, max_abs_err=m_err,
+                                                out_std=y_cpu.std().item())
+            log(f"archs {cfg.name} Mamba2 layer 0 f32 B=1 S={sz.CHIP_CPU_SEQ} "
+                f"(chunk {cfg.ssm.chunk}), card against CPU: max |d| {m_err:.4g} "
+                f"(output std {y_cpu.std().item():.4g})")
+
+            # long_500k: one decode step at B=1 at the last of 524,288
+            # positions (mamba2: an f32 state of the same size at any
+            # position; the hybrid: a bf16 cache holding the shared block's
+            # K/V for every position)
+            n_long = sz.CHIP_LONG_LEN
+            ldt = torch.float32 if cfg.family == "ssm" else torch.bfloat16
+            cache = model.init_cache(1, n_long, ldt)
+            cache_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(cache))
+            step = {"tokens": prompts[:1, :1], "cur": n_long - 1}
+            with torch.no_grad():
+                lg, _ = model.decode(cache, step)
+            check(bool(torch.isfinite(lg).all()), f"{cfg.name} long_500k logits not finite")
+            ms = walls_ms(lambda: model.decode(cache, step))
+            r["long_500k"] = dict(max_len=n_long, cur=n_long - 1, cache_dtype=str(ldt),
+                                  cache_bytes=cache_bytes, ms_per_step=ms)
+            log(f"archs {cfg.name} long_500k: one decode step at B=1, cur={n_long - 1}, "
+                f"{str(ldt)} cache of {cache_bytes / 1e6:.1f} MB: {ms:.3f} ms; "
+                f"logits finite")
+            del cache
+
+        if cfg.family == "vlm":
+            # the vlm's prefill (patches through the projector, then the LM)
+            # in f32 activations: its first layers on the card (the simple
+            # flash design) against the same on the CPU (the plain version)
+            p2, c2 = first_layers(params, cfg, sz.CHIP_CPU_LAYERS)
+            c2 = dataclasses.replace(c2, activation_dtype="float32")
+            b2 = concrete_batch(c2, ShapeSpec("chip_cpu", sz.CHIP_CPU_SEQ, 1, "prefill"),
+                                seed=3, device=dev)
+            (lg_card, _, by2) = counted(lambda: with_fwd(
+                kernel_fwd, lambda: tfm.prefill(p2, b2, c2)))
+            check(by2 == {"sm90": 0, "simple": c2.n_layers},
+                  f"{cfg.name} f32 prefill flash launches {by2}")
+            with torch.no_grad():
+                lg_cpu = tfm.prefill(tree_map(lambda t: t.cpu(), p2),
+                                     {k: v.cpu() for k, v in b2.items()}, c2)
+            # its logits' std is 1.8 (d_model 8192), three times smollm's:
+            # the bound scales with it
+            v_err = (lg_card.cpu() - lg_cpu).abs().max().item()
+            v_tol = CARD_CPU_TOL * max(1.0, lg_cpu.std().item())
+            check(v_err <= v_tol,
+                  f"{cfg.name} f32 prefill card vs CPU max |d| {v_err} > {v_tol}")
+            r["card_vs_cpu"] = dict(layers=c2.n_layers, seq=sz.CHIP_CPU_SEQ,
+                                    patches=cfg.vlm.n_patches, max_abs_err=v_err,
+                                    tol=v_tol, logit_std=lg_cpu.std().item())
+            log(f"archs {cfg.name} {c2.n_layers} layers f32 prefill B=1 "
+                f"S={sz.CHIP_CPU_SEQ} ({cfg.vlm.n_patches} patches + "
+                f"{sz.CHIP_CPU_SEQ - cfg.vlm.n_patches} tokens), card against CPU: "
+                f"max |d| {v_err:.4g} (bound {v_tol:.4g}: 1e-4 per unit of the "
+                f"logits' std {lg_cpu.std().item():.4g})")
 
         r["seconds"] = time.perf_counter() - t0
         return r

@@ -1,8 +1,8 @@
 """Architecture registry: --arch <id> → config, shape suite, inputs.
 
-The torch counterpart of ``repro.configs.registry`` for the architectures
-ported so far. Every architecture of the JAX package has a name here;
-one that is not ported yet raises, naming ROADMAP.md queue 1, item 12.
+The torch counterpart of ``repro.configs.registry``: every architecture
+of the JAX package, its configurations in a module of
+``repro_torch.configs``; an unknown name raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -23,12 +23,14 @@ ARCHS = ("smollm-360m", "gemma3-1b", "deepseek-coder-33b", "phi4-mini-3.8b",
          "deepseek-v2-lite-16b", "deepseek-moe-16b", "whisper-small",
          "internvl2-76b", "zamba2-1.2b", "mamba2-2.7b")
 
-# arch -> module under repro_torch.configs, for the archs ported so far
+# arch -> module under repro_torch.configs
 PORTED = {"smollm-360m": "smollm_360m", "gemma3-1b": "gemma3_1b",
           "deepseek-coder-33b": "deepseek_coder_33b",
           "phi4-mini-3.8b": "phi4_mini_3p8b",
           "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
-          "deepseek-moe-16b": "deepseek_moe_16b"}
+          "deepseek-moe-16b": "deepseek_moe_16b",
+          "whisper-small": "whisper_small", "internvl2-76b": "internvl2_76b",
+          "zamba2-1.2b": "zamba2_1p2b", "mamba2-2.7b": "mamba2_2p7b"}
 
 
 @dataclass(frozen=True)
@@ -50,10 +52,6 @@ SHAPES = {
 def _module(arch: str):
     if arch not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; one of {ARCHS}")
-    if arch not in PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet: ROADMAP.md queue 1, item 12 "
-            f"(ported: {', '.join(PORTED)})")
     return importlib.import_module(f"repro_torch.configs.{PORTED[arch]}")
 
 
@@ -66,24 +64,38 @@ def get_smoke(arch: str) -> ModelConfig:
 
 
 def _input_shapes(cfg: ModelConfig, shape: ShapeSpec, batch_override=None):
-    """Shapes of a cell's int32 model inputs, in the JAX package's order
-    (``input_specs`` of the dense and moe families)."""
+    """Shapes and dtypes of a cell's model inputs, in the JAX package's
+    order (``input_specs``): int32 tokens and labels, and the stubbed
+    frontends' f32 frames (encdec) or patches (vlm, whose text takes the
+    sequence's other S − n_patches positions)."""
     B = batch_override or shape.global_batch
+    S = shape.seq_len
+    i32, f32 = np.int32, np.float32
     if shape.mode in ("train", "prefill"):
-        return {"tokens": (B, shape.seq_len), "labels": (B, shape.seq_len)}
-    return {"tokens": (B, 1), "cur": ()}
+        if cfg.family == "vlm":
+            st = S - cfg.vlm.n_patches
+            return {"tokens": ((B, st), i32), "labels": ((B, st), i32),
+                    "patches": ((B, cfg.vlm.n_patches, cfg.vlm.vit_dim), f32)}
+        out = {"tokens": ((B, S), i32), "labels": ((B, S), i32)}
+        if cfg.family == "encdec":
+            out["frames"] = ((B, cfg.encdec.n_frames, cfg.d_model), f32)
+        return out
+    return {"tokens": ((B, 1), i32), "cur": ((), i32)}
 
 
 def concrete_batch(cfg: ModelConfig, shape: ShapeSpec, *, batch_override=None,
                    seed: int = 0, device="cuda") -> dict:
     """A cell's inputs drawn from ``numpy.random.default_rng(seed)`` as
-    the JAX package draws them (the same tokens), as int32 tensors on
-    ``device``."""
+    the JAX package draws them (the same tokens, frames and patches, key
+    by key in its order), as tensors on ``device``: int32 tokens, f32
+    normal frames and patches."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     out = {}
-    for k, shp in _input_shapes(cfg, shape, batch_override).items():
-        if shp:
+    for k, (shp, dtype) in _input_shapes(cfg, shape, batch_override).items():
+        if dtype == np.float32:
+            arr = rng.normal(size=shp).astype(np.float32)
+        elif shp:
             hi = cfg.vocab if k in ("tokens", "labels") else max(shape.seq_len, 2)
             arr = rng.integers(0, hi, shp, dtype=np.int32)
         else:

@@ -6,9 +6,8 @@
 
 The torch counterpart of ``repro.launch.train``: its options plus
 ``--device``, one process on one device. The enc-dec and VLM
-architectures exit non-zero, as there (they need a family-specific
-driver); an architecture the package has not ported raises, naming
-ROADMAP.md queue 1, item 12.
+architectures exit non-zero, as there: they train through
+``Trainer(..., extra_batch=...)`` with their frames or patches.
 """
 
 from __future__ import annotations

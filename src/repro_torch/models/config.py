@@ -1,10 +1,8 @@
 """Unified model configuration covering all assigned architecture families.
 
 A verbatim copy of ``repro.models.config``: pure dataclasses, so a
-configuration means the same in both packages. The torch package runs the
-dense and moe families (with GQA or MLA attention); the other families'
-sub-configs are here so that every configuration of the registry can be
-named.
+configuration means the same in both packages. The torch package runs
+every family.
 """
 
 from __future__ import annotations

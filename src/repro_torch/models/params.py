@@ -8,12 +8,13 @@ torch, so equal weights in both packages come from numpy
 (``interop.lm_params_from_numpy``), not from a shared seed.
 
 ``partition_specs`` and ``LOGICAL_RULES`` (the sharding of the tree over
-a device mesh) wait for the sharding slice (ROADMAP queue 1, item 12).
+a device mesh) wait for the sharding slice (ROADMAP queue 1, item 12.10).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import numpy as np
@@ -77,6 +78,19 @@ def tree_like(tree, new_leaves) -> dict:
     return unflatten(dict(zip(paths, new_leaves)))
 
 
+def _custom_fill(t: torch.Tensor, name: str, generator: torch.Generator) -> None:
+    """The mamba2 inits, equal in distribution to the JAX package's draws:
+    ``a_log = log(A)`` with A uniform in [1, 16]; ``dt_bias`` the inverse
+    softplus of dt, log-uniform in [1e-3, 1e-1]."""
+    if name == "a_log":
+        t.uniform_(1.0, 16.0, generator=generator).log_()
+    elif name == "dt_bias":
+        dt = t.uniform_(math.log(1e-3), math.log(1e-1), generator=generator).exp_()
+        dt.add_(torch.log(-torch.expm1(-dt)))
+    else:
+        raise ValueError(name)
+
+
 def _fill(t: torch.Tensor, d: ParamDef, generator: torch.Generator) -> None:
     """Draw ``d``'s initial value into ``t`` in place."""
     if d.init == "zeros" or d.scale == 0.0:
@@ -84,9 +98,7 @@ def _fill(t: torch.Tensor, d: ParamDef, generator: torch.Generator) -> None:
     elif d.init == "ones":
         t.fill_(1.0)
     elif d.init.startswith("custom:"):
-        raise NotImplementedError(
-            f"init {d.init!r} (the mamba2 parameters) is not ported yet: "
-            "ROADMAP.md queue 1, item 12")
+        _custom_fill(t, d.init[len("custom:"):], generator)
     else:
         t.normal_(0.0, d.scale, generator=generator)
 

@@ -15,6 +15,10 @@ Fault-tolerance contract:
   ``STRAGGLER_FACTOR ×`` the running median are counted and surfaced in
   metrics.
 
+``extra_batch`` (the encdec family's ``frames``, the vlm family's
+``patches``: arrays or tensors) is merged into every batch, as in the JAX
+package.
+
 A fresh run draws its weights from a ``torch.Generator`` seeded 0 on the
 model's device; the JAX package's draw differs, so runs of the two
 packages agree only from the same checkpoint.
@@ -54,10 +58,12 @@ class TrainerConfig:
 
 class Trainer:
     def __init__(self, model: Model, pipeline: TokenPipeline,
-                 tcfg: TrainerConfig):
+                 tcfg: TrainerConfig, *, extra_batch=None):
         self.model = model
         self.pipe = pipeline
         self.tcfg = tcfg
+        self.extra_batch = {k: torch.as_tensor(v).to(model.device)
+                            for k, v in (extra_batch or {}).items()}
         self.step_fn = make_train_step(model, tcfg.train)
         self.metrics_log: list[dict] = []
 
@@ -90,6 +96,7 @@ class Trainer:
         for step in range(start_step, tcfg.total_steps):
             batch = {k: torch.from_numpy(v).to(dev)
                      for k, v in self.pipe.batch_at(step).items()}
+            batch.update(self.extra_batch)
             t0 = time.perf_counter()
             params, opt_state, metrics = self.step_fn(params, opt_state, batch)
             metrics = {k: float(v) for k, v in metrics.items()}

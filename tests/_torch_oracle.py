@@ -1036,6 +1036,21 @@ SAMPLE_SEED = 11
 # C = ceil(16·2/8·0.5) = 2 places per expert for 32 assignments a row
 MOE_DROP_CF = 0.5
 MOE_X_SEED = 13
+# the ssm and hybrid archs, and the encdec and vlm archs
+SSM_ARCHS = ("mamba2-2.7b", "zamba2-1.2b")
+ENCDEC_ARCHS = ("whisper-small", "internvl2-76b")
+FRONTEND_SEED = 17
+# the SSD scan alone: (T, chunk) at B=1, H=4, P=8, G=2, N=16; 256 is the
+# production chunk, where the JAX package's gradient is non-finite (its
+# finite twin is taken at SSD_GRAD_CHUNK: the scan's value does not depend
+# on the chunk)
+SSD_CASES = ((32, 8), (512, 256))
+SSD_GRAD_CHUNK = 32
+SSD_SEED = 19
+# draws of each custom init, to compare the two packages' distributions
+INIT_DRAWS = 20000
+# concrete_batch of the frontends: (seq_len, batch, seed)
+FRONTEND_BATCH = (16, 3, LM_SEED)
 
 
 def arch_configs(pkg: str, archs) -> dict:
@@ -1068,9 +1083,26 @@ def moe_input(cfg) -> np.ndarray:
     return rng.normal(size=(LM_B, LM_S, cfg.d_model)).astype(np.float32)
 
 
-def _lm_common(res: dict, arch: str, cfg, m, params) -> None:
+def frontend_inputs(cfg, B: int = LM_B) -> dict[str, np.ndarray]:
+    """The stubbed frontends' f32 inputs of a batch of B: an encdec
+    model's frames (B, n_frames, d_model), a vlm's patches (B, n_patches,
+    vit_dim); nothing for the other families."""
+    rng = np.random.default_rng(FRONTEND_SEED)
+    if cfg.family == "encdec":
+        return {"frames": rng.normal(size=(B, cfg.encdec.n_frames, cfg.d_model))
+                .astype(np.float32)}
+    if cfg.family == "vlm":
+        return {"patches": rng.normal(size=(B, cfg.vlm.n_patches, cfg.vlm.vit_dim))
+                .astype(np.float32)}
+    return {}
+
+
+def _lm_common(res: dict, arch: str, cfg, m, params, cross=None) -> None:
     """Parameters, forward, prefill, decode steps and greedy tokens of one
-    arch under ``arch/``."""
+    arch under ``arch/``; the batch carries ``frontend_inputs``, and
+    ``cross`` (an encdec model's (k, v) from ``_enc_kv_all``) fills the
+    decode steps' cross cache (greedy decode runs on the zero cache, as
+    the JAX package's ``greedy_decode`` does)."""
     import jax
     import jax.numpy as jnp
 
@@ -1078,12 +1110,15 @@ def _lm_common(res: dict, arch: str, cfg, m, params) -> None:
 
     put_tree(res, f"params/{arch}", params)
     toks = jnp.asarray(lm_tokens(cfg.vocab, (LM_B, LM_S), LM_SEED))
-    batch = {"tokens": toks, "labels": toks}
+    batch = {"tokens": toks, "labels": toks,
+             **{k: jnp.asarray(a) for k, a in frontend_inputs(cfg).items()}}
     logits, aux = m.forward(params, batch)
     res[f"forward/{arch}"] = np.asarray(logits)
     res[f"forward_aux/{arch}"] = np.asarray(aux)
     res[f"prefill/{arch}"] = np.asarray(m.prefill(params, batch))
     cache = m.init_cache(LM_B, LM_S, jnp.float32)
+    if cross is not None:
+        cache["cross"] = {"k": cross[0], "v": cross[1]}
     dec = jax.jit(m.decode)
     steps = []
     for t in range(LM_S):
@@ -1193,12 +1228,144 @@ def _recipe_lm_moe() -> dict[str, np.ndarray]:
     return res
 
 
+def ssd_inputs(T: int, seed: int = SSD_SEED):
+    """x (1,T,4,8), dt (1,T,4), A (4,), Bm and Cm (1,T,2,16), f32, with the
+    inits' ranges: A = −U[1, 16] and dt log-uniform in [1e-3, 1e-1]; the
+    last head at the extremes (A = −16, dt = 0.1: −dt·A = 1.6 a step, so
+    ``exp`` overflows within a 256-token chunk)."""
+    rng = np.random.default_rng(seed + T)
+    H, P, G, N = 4, 8, 2, 16
+    A = -rng.uniform(1.0, 16.0, H).astype(np.float32)
+    A[-1] = -16.0
+    dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), (1, T, H))).astype(np.float32)
+    dt[..., -1] = 0.1
+    x = rng.normal(size=(1, T, H, P)).astype(np.float32)
+    Bm = rng.normal(size=(1, T, G, N)).astype(np.float32)
+    Cm = rng.normal(size=(1, T, G, N)).astype(np.float32)
+    return x, dt, A, Bm, Cm
+
+
+def ssd_cotangent(T: int) -> np.ndarray:
+    """The weights g of the scalar sum(y·g) whose gradient is compared."""
+    return np.random.default_rng(SSD_SEED * 1000 + T).normal(size=(1, T, 4, 8)).astype(np.float32)
+
+
+def mamba_layer_inputs(cfg):
+    """One Mamba2 layer's inputs: x (LM_B, LM_S, D), and a decode step's x
+    (LM_B, 1, D) and cache {conv, ssm}, f32 normals."""
+    ssm = cfg.ssm
+    d_inner = ssm.expand * cfg.d_model
+    H = d_inner // ssm.head_dim
+    rng = np.random.default_rng(MOE_X_SEED + 1)
+    f = lambda *shp: rng.normal(size=shp).astype(np.float32)
+    return (f(LM_B, LM_S, cfg.d_model), f(LM_B, 1, cfg.d_model),
+            {"conv": f(LM_B, ssm.conv_width - 1, d_inner + 2 * ssm.n_groups * ssm.d_state),
+             "ssm": f(LM_B, H, ssm.head_dim, ssm.d_state)})
+
+
+def _recipe_lm_ssm() -> dict[str, np.ndarray]:
+    """The ssm and hybrid archs: full-width parameter counts and shared-
+    block applications; SMOKE parameters, forward, prefill, decode, greedy
+    tokens, ``loss_fn``'s ce and gradients; one Mamba2 layer (block and a
+    decode step); the SSD scan and its decode step on SSD_CASES, the scan's
+    gradient at chunk 256 and at SSD_GRAD_CHUNK; the custom inits' draws."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs.registry import get_config
+    from repro.models import build_model
+    from repro.models import mamba2 as jm
+    from repro.models import params as jparams
+    from repro.models import transformer as jt
+
+    res = {}
+    for arch, cfg in arch_configs("repro", SSM_ARCHS).items():
+        full = get_config(arch)
+        res[f"n_params/{arch}"] = np.asarray(build_model(full).n_params())
+        if cfg.family == "hybrid":
+            res[f"n_apps/{arch}"] = np.asarray([jt._n_shared_apps(full),
+                                                jt._n_shared_apps(cfg)])
+        m = build_model(cfg)
+        params = m.init(jax.random.PRNGKey(LM_SEED))
+        _lm_common(res, arch, cfg, m, params)
+        batch = {k: jnp.asarray(a) for k, a in loss_batch(cfg.vocab, 32, False).items()}
+        (_, (ce, _)), grads = jax.jit(jax.value_and_grad(
+            lambda p, b: m.loss(p, b, remat=True), has_aux=True))(params, batch)
+        res[f"loss/{arch}/ce"] = np.asarray(ce)
+        put_tree(res, f"grads/{arch}", grads)
+        p0 = jax.tree.map(lambda a: a[0], params["layers"])
+        x, x1, cache = mamba_layer_inputs(cfg)
+        res[f"block/{arch}"] = np.asarray(jm.mamba2_block(p0, jnp.asarray(x), cfg))
+        out, new = jm.mamba2_decode(p0, jnp.asarray(x1),
+                                    jax.tree.map(jnp.asarray, cache), cfg)
+        res[f"block_decode/{arch}/out"] = np.asarray(out)
+        put_tree(res, f"block_decode/{arch}/cache", new)
+    for T, chunk in SSD_CASES:
+        x, dt, A, Bm, Cm = (jnp.asarray(a) for a in ssd_inputs(T))
+        res[f"ssd/{T}/{chunk}"] = np.asarray(jax.jit(
+            jm.ssd_chunked, static_argnums=5)(x, dt, A, Bm, Cm, chunk))
+        g = jnp.asarray(ssd_cotangent(T))
+        for ck in (chunk, SSD_GRAD_CHUNK):
+            grads = jax.jit(jax.grad(lambda *a: jnp.sum(jm.ssd_chunked(*a, ck) * g),
+                                     argnums=(0, 1, 2, 3, 4)))(x, dt, A, Bm, Cm)
+            for name, gr in zip(("x", "dt", "A", "Bm", "Cm"), grads):
+                res[f"ssd_grad/{T}/{ck}/{name}"] = np.asarray(gr)
+        h = jnp.asarray(np.random.default_rng(T).normal(size=(1, 4, 8, 16))
+                        .astype(np.float32))
+        y, h_new = jm.ssd_decode_step(h, x[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0])
+        res[f"ssd_step/{T}/y"] = np.asarray(y)
+        res[f"ssd_step/{T}/h"] = np.asarray(h_new)
+    for name in ("a_log", "dt_bias"):
+        res[f"init/{name}"] = np.asarray(jparams._custom_init(
+            name, (INIT_DRAWS,), jax.random.PRNGKey(LM_SEED)))
+    return res
+
+
+def _recipe_lm_encdec() -> dict[str, np.ndarray]:
+    """The encdec and vlm archs: full-width parameter counts; SMOKE
+    parameters, forward, prefill, decode (whisper's with the cross cache
+    from ``_enc_kv_all`` of the batch's frames), greedy tokens,
+    ``loss_fn``'s ce and gradients; ``concrete_batch`` at
+    FRONTEND_BATCH."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs.registry import ShapeSpec, concrete_batch, get_config
+    from repro.models import build_model
+    from repro.models import transformer as jt
+
+    res = {}
+    for arch, cfg in arch_configs("repro", ENCDEC_ARCHS).items():
+        res[f"n_params/{arch}"] = np.asarray(build_model(get_config(arch)).n_params())
+        m = build_model(cfg)
+        params = m.init(jax.random.PRNGKey(LM_SEED))
+        cross = None
+        if cfg.family == "encdec":
+            frames = jnp.asarray(frontend_inputs(cfg)["frames"])
+            cross = jt._enc_kv_all(params, jt._encode(params, frames, cfg, False), cfg)
+            res[f"cross/{arch}/k"] = np.asarray(cross[0])
+        _lm_common(res, arch, cfg, m, params, cross)
+        batch = {k: jnp.asarray(a) for k, a in
+                 {**loss_batch(cfg.vocab, 32, False),
+                  **frontend_inputs(cfg, LOSS_B)}.items()}
+        (_, (ce, _)), grads = jax.jit(jax.value_and_grad(
+            lambda p, b: m.loss(p, b, remat=True), has_aux=True))(params, batch)
+        res[f"loss/{arch}/ce"] = np.asarray(ce)
+        put_tree(res, f"grads/{arch}", grads)
+        S, B, seed = FRONTEND_BATCH
+        b = concrete_batch(cfg, ShapeSpec("t", S, B, "prefill"), seed=seed)
+        for key, val in b.items():
+            res[f"batch/{arch}/{key}"] = np.asarray(val)
+    return res
+
+
 RECIPES = {"core": _recipe_core, "gol3d": _recipe_gol3d, "pack": _recipe_pack,
            "halo": _recipe_halo, "distributed": _recipe_distributed,
            "flash": _recipe_flash, "lm": _recipe_lm, "ckpt": _recipe_ckpt,
            "xrun": _recipe_xrun, "serve_cli": _recipe_serve_cli,
            "train": _recipe_train, "lm_archs": _recipe_lm_archs,
-           "lm_moe": _recipe_lm_moe}
+           "lm_moe": _recipe_lm_moe, "lm_ssm": _recipe_lm_ssm,
+           "lm_encdec": _recipe_lm_encdec}
 
 
 if __name__ == "__main__":

@@ -37,7 +37,10 @@ def test_import_pulls_in_no_jax():
             "repro_torch.configs.deepseek_coder_33b, "
             "repro_torch.configs.phi4_mini_3p8b, "
             "repro_torch.configs.deepseek_v2_lite_16b, "
-            "repro_torch.configs.deepseek_moe_16b, sys; "
+            "repro_torch.configs.deepseek_moe_16b, repro_torch.models.mamba2, "
+            "repro_torch.configs.mamba2_2p7b, repro_torch.configs.zamba2_1p2b, "
+            "repro_torch.configs.whisper_small, "
+            "repro_torch.configs.internvl2_76b, sys; "
             "bad = [m for m in sys.modules if m in ('jax', 'repro', 'ml_dtypes', "
             "'benchmarks') or m.startswith(('jax.', 'repro.', 'ml_dtypes.', "
             "'benchmarks.'))]; "
@@ -64,7 +67,9 @@ def test_sources_name_no_jax_import():
             "service.py", "optimizer.py", "train_step.py", "trainer.py",
             "pipeline.py", "train.py", "moe.py", "gemma3_1b.py",
             "deepseek_coder_33b.py", "phi4_mini_3p8b.py",
-            "deepseek_v2_lite_16b.py", "deepseek_moe_16b.py"} <= names
+            "deepseek_v2_lite_16b.py", "deepseek_moe_16b.py", "mamba2.py",
+            "mamba2_2p7b.py", "zamba2_1p2b.py", "whisper_small.py",
+            "internvl2_76b.py"} <= names
     assert len(files) > 10
     for f in files:
         assert not pat.search(f.read_text()), f

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import registry as jreg
 from _torch_oracle import (GREEDY_NEW, GREEDY_P, LM_B, LM_S, LM_S_ODD,
                            LM_SEED, lm_configs, lm_tokens, reference_arrays)
 from repro_torch.configs.registry import (ARCHS, PORTED, SHAPES, ShapeSpec,
@@ -204,18 +205,21 @@ def test_concrete_batch_equals_jax(ref_lm, sname):
 
 
 def test_registry_names_what_is_not_ported():
-    assert get_config("smollm-360m").n_layers == 32
-    assert get_smoke("smollm-360m").d_model == 96
-    unported = [arch for arch in ARCHS if arch not in PORTED]
-    assert unported
-    for arch in unported:
-        with pytest.raises(NotImplementedError, match="queue 1, item 12"):
-            get_config(arch)
+    """Every arch of the JAX package is ported: its CONFIG and SMOKE equal
+    the JAX package's field by field (sub-configs included). An unknown
+    arch raises KeyError, an unknown family ValueError (as there)."""
+    assert set(PORTED) == set(ARCHS) == set(jreg.ARCHS)
+    for arch in ARCHS:
+        for got, want in ((get_config(arch), jreg.get_config(arch)),
+                          (get_smoke(arch), jreg.get_smoke(arch))):
+            assert dataclasses.asdict(got) == dataclasses.asdict(want), arch
     with pytest.raises(KeyError):
         get_config("gpt-2")
-    ssm = dataclasses.replace(get_smoke("smollm-360m"), family="ssm")
-    with pytest.raises(NotImplementedError, match="queue 1, item 12"):
-        Model(ssm, device="cpu")
+    odd = dataclasses.replace(get_smoke("smollm-360m"), family="rnn")
+    with pytest.raises(ValueError, match="rnn"):
+        Model(odd, device="cpu")
+    with pytest.raises(ValueError, match="rnn"):
+        tfm.cache_defs(odd, 1, 4)
 
 
 def test_params_from_numpy_checks_the_tree(ref_lm):
