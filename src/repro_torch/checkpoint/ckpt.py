@@ -26,7 +26,13 @@ other. Layout of a checkpoint directory::
   exponential backoff, cleaning its temp dir between attempts.
 - **Elasticity**: leaves are saved as logical (whole) arrays, so a
   restore may target any layout; ``restore(device=...)`` places every
-  leaf on one device.
+  leaf on one device, ``restore(shardings=...)`` distributes leaves over
+  a ``DeviceMesh`` (the JAX package's ``device_put`` onto shardings).
+- **Sharded trees**: a tree with DTensor leaves is gathered leaf by leaf
+  (``full_tensor()``, a collective every rank of the mesh calls), the
+  mesh's first rank writes, and every rank of the mesh waits for the
+  write before ``save`` returns (``wait`` does it for ``save_async``).
+  The files are the same as for whole arrays.
 - **Async**: ``save_async`` copies to host memory now and writes in a
   background thread; ``wait`` joins before the next save or exit.
 
@@ -51,6 +57,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Partial, distribute_tensor
 
 from repro_torch.models.params import leaf_paths, unflatten
 
@@ -58,7 +65,8 @@ __all__ = ["save", "save_async", "wait", "restore", "latest_step",
            "valid_steps", "CheckpointCorruptError"]
 
 _MAX_CHUNK_BYTES = 1 << 30
-_pending: list[threading.Thread] = []
+# (writer thread or None, the mesh whose ranks wait for the write or None)
+_pending: list[tuple] = []
 # dtypes numpy lacks: the logical name on disk, and the unsigned view
 # (torch's signed one, for from_numpy) that holds their bits
 _VIEWED = {torch.bfloat16: ("bfloat16", np.uint16, torch.int16),
@@ -80,7 +88,10 @@ def crc32(a: np.ndarray) -> int:
 
 def _to_host(v, copy: bool) -> tuple[np.ndarray, str]:
     """(the array written to disk, its logical dtype name); with ``copy``
-    it shares no memory with ``v``, which the caller may then change."""
+    it shares no memory with ``v``, which the caller may then change. A
+    DTensor is gathered whole first (every rank of its mesh calls this)."""
+    if isinstance(v, DTensor):
+        v, copy = v.full_tensor(), False
     if not isinstance(v, torch.Tensor):
         a = np.array(v, copy=True) if copy else np.asarray(v)
         return a, str(a.dtype)
@@ -101,6 +112,29 @@ def _host_tree(tree: dict, copy: bool = False) -> dict[str, tuple[np.ndarray, st
             for path, v in leaf_paths(tree)}
 
 
+def _mesh_of(tree):
+    """The mesh of ``tree``'s DTensor leaves, or None for a tree of whole
+    arrays."""
+    for _, v in leaf_paths(tree):
+        if isinstance(v, DTensor):
+            return v.device_mesh
+    return None
+
+
+def _writes(mesh) -> bool:
+    """Whether this process writes: always for whole arrays, on the mesh's
+    first rank for a sharded tree."""
+    return mesh is None or not any(mesh.get_coordinate())
+
+
+def _mesh_barrier(mesh) -> None:
+    """Wait for every rank of ``mesh`` (a one-element reduction)."""
+    if mesh is not None:
+        one = torch.zeros(1, device=mesh.device_type)
+        DTensor.from_local(one, mesh, [Partial()] * mesh.ndim,
+                           run_check=False).full_tensor()
+
+
 def save(ckpt_dir: str, step: int, tree: dict, *, meta: dict | None = None,
          retries: int = 2, backoff: float = 0.05):
     """Synchronous atomic save of a tree (nested dicts) of arrays.
@@ -108,28 +142,43 @@ def save(ckpt_dir: str, step: int, tree: dict, *, meta: dict | None = None,
     Transient ``OSError`` during the write is retried up to ``retries``
     times with exponential backoff (the temp dir is removed between
     attempts so every attempt starts clean); the last failure re-raises.
+    A sharded tree is written by its mesh's first rank; every rank of the
+    mesh calls this and returns once the checkpoint is in place.
     """
-    _write_with_retry(ckpt_dir, step, _host_tree(tree), meta or {}, retries,
-                      backoff)
+    mesh = _mesh_of(tree)
+    host = _host_tree(tree)
+    if _writes(mesh):
+        _write_with_retry(ckpt_dir, step, host, meta or {}, retries, backoff)
+    _mesh_barrier(mesh)
 
 
 def save_async(ckpt_dir: str, step: int, tree: dict, *,
                meta: dict | None = None, retries: int = 2,
                backoff: float = 0.05):
     """Copy to host now (the caller may change the leaves once this
-    returns); write (with the same bounded retry) in the background."""
+    returns); write (with the same bounded retry) in the background. A
+    sharded tree is gathered now and written by its mesh's first rank;
+    :func:`wait` then waits for every rank of the mesh."""
+    mesh = _mesh_of(tree)
     host = _host_tree(tree, copy=True)
-    t = threading.Thread(
-        target=_write_with_retry,
-        args=(ckpt_dir, step, host, meta or {}, retries, backoff),
-        daemon=True)
-    t.start()
-    _pending.append(t)
+    t = None
+    if _writes(mesh):
+        t = threading.Thread(
+            target=_write_with_retry,
+            args=(ckpt_dir, step, host, meta or {}, retries, backoff),
+            daemon=True)
+        t.start()
+    _pending.append((t, mesh))
 
 
 def wait():
+    """Join every pending background write (and, for a sharded tree, wait
+    for the mesh's ranks)."""
     while _pending:
-        _pending.pop().join()
+        t, mesh = _pending.pop(0)
+        if t is not None:
+            t.join()
+        _mesh_barrier(mesh)
 
 
 def _write_with_retry(ckpt_dir: str, step: int, host: dict, meta: dict,
@@ -275,11 +324,16 @@ def _load(d: str, verify: bool) -> tuple[dict, dict]:
 
 
 def restore(ckpt_dir: str, step: int | None = None, *,
-            device: "str | torch.device | None" = None, verify: bool = True,
-            quarantine: bool = True) -> tuple[dict, dict]:
+            device: "str | torch.device | None" = None, shardings=None,
+            verify: bool = True, quarantine: bool = True) -> tuple[dict, dict]:
     """Returns (tree, meta). ``device``: place every leaf on it as a torch
     tensor (elastic restore onto the caller's device); None leaves numpy
-    arrays, and CPU tensors for the dtypes numpy lacks.
+    arrays, and CPU tensors for the dtypes numpy lacks. ``shardings``: a
+    tree (matching the checkpoint's, possibly in part) of ``(mesh,
+    placements)`` pairs, or a callable ``(path, value) -> (mesh,
+    placements) or None``; each leaf it names becomes a DTensor on that
+    mesh (every rank of the mesh restores the same checkpoint), the others
+    follow ``device``.
 
     ``verify`` (default on) checks every leaf against its manifest crc32.
     With ``step=None`` the newest valid checkpoint is tried first and
@@ -291,13 +345,13 @@ def restore(ckpt_dir: str, step: int | None = None, *,
     if step is not None:
         loaded, manifest = _load(
             os.path.join(ckpt_dir, f"step_{step:08d}"), verify)
-        return _finish(loaded, manifest, device)
+        return _finish(loaded, manifest, device, shardings)
     last_err: Exception | None = None
     for cand in reversed(valid_steps(ckpt_dir)):
         try:
             loaded, manifest = _load(
                 os.path.join(ckpt_dir, f"step_{cand:08d}"), verify)
-            return _finish(loaded, manifest, device)
+            return _finish(loaded, manifest, device, shardings)
         except CheckpointCorruptError as e:
             last_err = e
             if quarantine:
@@ -309,7 +363,21 @@ def restore(ckpt_dir: str, step: int | None = None, *,
     raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
 
 
-def _finish(loaded: dict, manifest: dict, device) -> tuple[dict, dict]:
-    if device is not None:
-        loaded = {k: torch.as_tensor(v).to(device) for k, v in loaded.items()}
-    return unflatten({tuple(k.split("/")): v for k, v in loaded.items()}), manifest["meta"]
+def _finish(loaded: dict, manifest: dict, device, shardings) -> tuple[dict, dict]:
+    if shardings is None:
+        where = lambda path, v: None
+    elif callable(shardings):
+        where = shardings
+    else:
+        flat = {"/".join(map(str, path)): s for path, s in leaf_paths(shardings)}
+        where = lambda path, v: flat.get(path)
+    out = {}
+    for k, v in loaded.items():
+        target = where(k, v)
+        if target is not None:
+            mesh, pl = target
+            v = distribute_tensor(torch.as_tensor(v), mesh, pl)
+        elif device is not None:
+            v = torch.as_tensor(v).to(device)
+        out[tuple(k.split("/"))] = v
+    return unflatten(out), manifest["meta"]

@@ -252,6 +252,57 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+_BATCH_AXES = ("pod", "data")
+
+
+def _flash_on_mesh(q, k, v, causal, schedule, block_q, block_k):
+    """``_FlashAttention`` on each rank's part of DTensor q, k, v (the
+    kernel has no DTensor sharding rule): the batch split over the mesh's
+    batch axes and the heads over ``"model"`` wherever they divide (else
+    replicated there); the output comes back with q's placements, and the
+    gradients through ``local_map``'s backward. Where q's heads are split
+    and k's and v's are not (too few kv heads), each rank takes the kv
+    head of each of its q heads, and their gradients are partial sums
+    over ``"model"``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    B, Hq = q.shape[:2]
+    Hkv = k.shape[1]
+    q_pl, kv_pl, kv_grad = [], [], []
+    pick_kv = False
+    for i, name in enumerate(mesh.mesh_dim_names):
+        n = mesh.size(i)
+        if name in _BATCH_AXES and B % n == 0:
+            B //= n
+            q_p = kv_p = kv_g = Shard(0)
+        elif name == "model" and Hq % n == 0:
+            q_p = Shard(1)
+            pick_kv = Hkv % n != 0
+            kv_p, kv_g = (Replicate(), Partial()) if pick_kv else (Shard(1), Shard(1))
+        else:
+            q_p = kv_p = kv_g = Replicate()
+        q_pl.append(q_p)
+        kv_pl.append(kv_p)
+        kv_grad.append(kv_g)
+
+    def local(q, k, v):
+        if pick_kv:  # global q head h reads kv head h // (Hq / Hkv)
+            hq = q.shape[1]
+            first = mesh.get_local_rank("model") * hq
+            idx = torch.div(torch.arange(first, first + hq, device=q.device),
+                            Hq // Hkv, rounding_mode="floor")
+            k, v = k.index_select(1, idx), v.index_select(1, idx)
+        return _FlashAttention.apply(q, k, v, causal, schedule, block_q, block_k)
+
+    q_pl, kv_pl, kv_grad = tuple(q_pl), tuple(kv_pl), tuple(kv_grad)
+    return local_map(local, out_placements=(q_pl,),
+                     in_placements=(q_pl, kv_pl, kv_pl),
+                     in_grad_placements=(q_pl, kv_grad, kv_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+
+
 def flash_attention(q, k, v, causal: bool = True, schedule: str = "morton",
                     block_q: int = 64, block_k: int = 64) -> torch.Tensor:
     """Trainable flash attention. q: (B,Hq,S,D); k,v: (B,Hkv,Sk,D).
@@ -261,6 +312,11 @@ def flash_attention(q, k, v, causal: bool = True, schedule: str = "morton",
     version on the CPU); the backward recomputes through the dense oracle
     (the JAX package's recompute backward, which keeps the kernel forward
     only). Blocks are ``block_q`` and ``block_k`` halved until they
-    divide the sequence.
+    divide the sequence (each rank's, on a mesh). DTensor inputs run on
+    each rank's batch and heads (:func:`_flash_on_mesh`).
     """
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(q, DTensor):
+        return _flash_on_mesh(q, k, v, causal, schedule, block_q, block_k)
     return _FlashAttention.apply(q, k, v, causal, schedule, block_q, block_k)

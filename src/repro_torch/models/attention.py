@@ -7,7 +7,9 @@ is causal and has no sliding window — on the card that is the CUDA
 kernel — and ``masked_sdpa`` otherwise. ``masked_sdpa`` never
 materialises an (S, S) score tensor for long sequences: above 4096
 queries it walks them in chunks of 1024. Decode attends one new token to
-the preallocated cache through ``masked_sdpa``.
+the preallocated cache through ``masked_sdpa``. On a device mesh
+(DTensor parameters) decode redistributes its scores to
+``cfg.score_spec``, as the JAX package pins them.
 
 The per-layer flag ``is_global`` (gemma3's local:global pattern) is a
 Python bool here: the layers run in a Python loop, not under ``scan``.
@@ -22,12 +24,14 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.layout import device_constant
 from repro_torch.kernels.ops import flash_attention
 
 from .config import ModelConfig
 from .layers import _rotate, causal_window_mask, rope_freqs
+from .params import constrain, gathered
 
 __all__ = ["masked_sdpa", "gqa_attention", "gqa_decode", "mla_attention",
            "mla_decode", "rope_with_freqs", "select_freqs"]
@@ -66,14 +70,17 @@ def _mask_for(posq, posk, window, is_global, causal=True):
 
 
 def masked_sdpa(q, k, v, posq, posk, *, window=None, is_global=None,
-                causal=True, q_chunk: int = _Q_CHUNK):
+                causal=True, q_chunk: int = _Q_CHUNK, score_spec=None):
     """q: (B,Sq,H,hd), k/v: (B,Sk,KV,hd) -> (B,Sq,H,hd). f32 softmax.
 
     Queries are grouped (KV, rep) so K/V are never repeated; the products
     take the operands cast to f32 (the JAX package's f32 accumulation of
     bf16 operands), the probabilities are rounded to v's dtype before the
     second product, and the output is in v's dtype. For Sq > 4096 it
-    walks q in chunks so live scores are O(C·Sk).
+    walks q in chunks so live scores are O(C·Sk). ``score_spec`` (B, H,
+    Sq, Sk) pins the scores' sharding where they are a DTensor (decode
+    over a sequence-sharded cache); the (B, KV, rep, Sq, Sk) scores take
+    it with the group dims unsplit.
     """
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
@@ -86,6 +93,9 @@ def masked_sdpa(q, k, v, posq, posk, *, window=None, is_global=None,
         qg = qc.reshape(B, C, KV, rep, hd).float()
         s = torch.einsum("bqgrd,bkgd->bgrqk", qg, kf) / math.sqrt(hd)
         s = torch.where(m, s, _NEG)
+        if score_spec is not None:
+            bspec, _, qspec, kspec = score_spec
+            s = constrain(s, (bspec, None, None, qspec, kspec))
         p = torch.softmax(s, dim=-1)
         o = torch.einsum("bgrqk,bkgd->bqgrd", p.to(v.dtype).float(), vf)
         return o.reshape(B, C, H, hd).to(v.dtype)
@@ -96,12 +106,38 @@ def masked_sdpa(q, k, v, posq, posk, *, window=None, is_global=None,
                       for i in range(0, Sq, q_chunk)], dim=1)
 
 
+def split_heads(t, H: int, hd: int):
+    """(..., H·hd) -> (..., H, hd). Where ``t`` is a DTensor whose fused
+    columns are split over a mesh dim that does not divide H (a head cut in
+    two, which GSPMD reshards silently and DTensor's view refuses), the
+    columns are gathered first."""
+    if isinstance(t, DTensor) and any(
+            pl.is_shard(t.ndim - 1) and H % t.device_mesh.size(i)
+            for i, pl in enumerate(t.placements)):
+        t = gathered(t, -1)
+    return t.reshape(*t.shape[:-1], H, hd)
+
+
+def write_token(cache_t, cur: int, val) -> None:
+    """``cache_t[:, cur] = val`` in place (``val`` (B, ...) rounded to the
+    cache's dtype). A DTensor cache, its sequence perhaps split over the
+    mesh, takes the token through a select over positions (the JAX
+    package's ``dynamic_update_slice``, a pass over the cache): DTensor
+    would write a split sequence at each shard's own index ``cur``."""
+    val = val.to(cache_t.dtype)
+    if not isinstance(cache_t, DTensor):
+        cache_t[:, cur] = val
+        return
+    at = torch.arange(cache_t.shape[1], device=cache_t.device) == cur
+    at = at.view(1, -1, *([1] * (cache_t.ndim - 2)))
+    cache_t.copy_(torch.where(at, val[:, None], cache_t))
+
+
 def _proj_qkv(p, x, cfg: ModelConfig):
-    B, S, D = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, H, hd)
-    k = (x @ p["wk"].to(x.dtype)).reshape(B, S, KV, hd)
-    v = (x @ p["wv"].to(x.dtype)).reshape(B, S, KV, hd)
+    q = split_heads(x @ p["wq"].to(x.dtype), H, hd)
+    k = split_heads(x @ p["wk"].to(x.dtype), KV, hd)
+    v = split_heads(x @ p["wv"].to(x.dtype), KV, hd)
     return q, k, v
 
 
@@ -147,11 +183,11 @@ def gqa_decode(p: dict, x: torch.Tensor, cache: dict, cur: int,
     q = rope_with_freqs(q, posq, freqs)
     k = rope_with_freqs(k, posq, freqs)
     ck, cv = cache["k"], cache["v"]
-    ck[:, cur] = k[:, 0].to(ck.dtype)
-    cv[:, cur] = v[:, 0].to(cv.dtype)
+    write_token(ck, cur, k[:, 0])
+    write_token(cv, cur, v[:, 0])
     posk = torch.arange(ck.shape[1], device=x.device)
     o = masked_sdpa(q, ck, cv, posq, posk, window=cfg.sliding_window,
-                    is_global=is_global)
+                    is_global=is_global, score_spec=cfg.score_spec)
     o = o.reshape(B, 1, cfg.n_heads * cfg.hd).to(x.dtype)
     return o @ p["wo"].to(x.dtype), cache
 
@@ -165,7 +201,7 @@ def _mla_parts(p, x, cfg: ModelConfig):
     B, S, D = x.shape
     H = cfg.n_heads
     nope, rope = mla.qk_nope_dim, mla.qk_rope_dim
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, H, nope + rope)
+    q = split_heads(x @ p["wq"].to(x.dtype), H, nope + rope)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     dkv = x @ p["w_dkv"].to(x.dtype)
     c_kv, k_rope = dkv[..., :mla.kv_lora_rank], dkv[..., mla.kv_lora_rank:]
@@ -188,8 +224,8 @@ def _mla_attend(p, q_nope, q_rope, c_kv, k_rope, posq, posk, cfg: ModelConfig,
                             lambda: rope_freqs(rope, cfg.rope_theta), c_kv.device)
     q_rope = rope_with_freqs(q_rope, posq, freqs)
     k_rope = rope_with_freqs(k_rope[..., None, :], posk, freqs)[..., 0, :]
-    k_nope = (c_kv @ p["w_uk"].to(c_kv.dtype)).reshape(B, Sk, H, nope).float()
-    v = (c_kv @ p["w_uv"].to(c_kv.dtype)).reshape(B, Sk, H, vd)
+    k_nope = split_heads(c_kv @ p["w_uk"].to(c_kv.dtype), H, nope).float()
+    v = split_heads(c_kv @ p["w_uv"].to(c_kv.dtype), H, vd)
     vf, krf = v.float(), k_rope.float()
     scale = 1.0 / math.sqrt(nope + rope)
 
@@ -197,6 +233,8 @@ def _mla_attend(p, q_nope, q_rope, c_kv, k_rope, posq, posk, cfg: ModelConfig,
         s = (torch.einsum("bqhd,bkhd->bhqk", qn.float(), k_nope)
              + torch.einsum("bqhd,bkd->bhqk", qr.float(), krf)) * scale
         s = torch.where(causal_window_mask(pq, posk, None), s, _NEG)
+        if Sq == 1:  # decode
+            s = constrain(s, cfg.score_spec)
         pr = torch.softmax(s, dim=-1)
         return torch.einsum("bhqk,bkhd->bqhd", pr.to(v.dtype).float(),
                             vf).to(v.dtype)
@@ -229,8 +267,8 @@ def mla_decode(p: dict, x: torch.Tensor, cache: dict, cur: int,
     the activation dtype before the output projection, as there."""
     qn, qr, c_kv_new, k_rope_new = _mla_parts(p, x, cfg)
     ck, kr = cache["c_kv"], cache["k_rope"]
-    ck[:, cur] = c_kv_new[:, 0].to(ck.dtype)
-    kr[:, cur] = k_rope_new[:, 0].to(kr.dtype)
+    write_token(ck, cur, c_kv_new[:, 0])
+    write_token(kr, cur, k_rope_new[:, 0])
     posq = torch.full((1,), cur, dtype=torch.int64, device=x.device)
     posk = torch.arange(ck.shape[1], device=x.device)
     o = _mla_attend(p, qn, qr, ck, kr, posq, posk, cfg).to(x.dtype)

@@ -12,8 +12,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.layout import device_constant
+
+from .params import gathered
 
 __all__ = ["rmsnorm", "rope_freqs", "apply_rope", "swiglu", "embed",
            "unembed", "nll", "softmax_cross_entropy", "causal_window_mask"]
@@ -57,8 +60,10 @@ def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
 def embed(w: torch.Tensor, tokens: torch.Tensor, dtype) -> torch.Tensor:
     """Rows of ``w`` (V, D) at ``tokens``, in ``dtype``. ``F.embedding``,
     not indexing: its backward sums each row's gradients in a fixed order
-    on the CPU, where indexing's accumulating scatter does not."""
-    return F.embedding(tokens.long(), w).to(dtype)
+    on the CPU, where indexing's accumulating scatter does not. A
+    vocab-sharded DTensor table is gathered along the vocab first: DTensor's
+    masked lookup into a split table breaks on batch-sharded tokens."""
+    return F.embedding(tokens.long(), gathered(w, 0)).to(dtype)
 
 
 def unembed(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -69,8 +74,28 @@ def unembed(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 def nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Per-position negative log-likelihood: logits (..., V) f32, labels
     (...) int -> (...)."""
-    lse = torch.logsumexp(logits, dim=-1)
-    return lse - torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.logsumexp(logits, dim=-1) - _label_logits(logits, labels)
+
+
+def _pick(logits, labels):
+    return torch.gather(logits, -1, labels[..., None].long())[..., 0]
+
+
+def _label_logits(logits, labels):
+    """Each position's logit of its label. DTensor logits pick on each
+    rank's rows with the vocab whole (``local_map``): DTensor's own
+    gather from a split vocab breaks on batch-split labels."""
+    if not isinstance(logits, DTensor):
+        return _pick(logits, labels)
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    last = logits.ndim - 1
+    rows = tuple(Replicate() if pl.is_partial() or pl.is_shard(last) else pl
+                 for pl in logits.placements)
+    return local_map(_pick, out_placements=(rows,), in_placements=(rows, rows),
+                     device_mesh=logits.device_mesh,
+                     redistribute_inputs=True)(logits, labels)
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

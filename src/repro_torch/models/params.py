@@ -7,8 +7,17 @@ counts it. The JAX package's random streams cannot be reproduced in
 torch, so equal weights in both packages come from numpy
 (``interop.lm_params_from_numpy``), not from a shared seed.
 
-``partition_specs`` and ``LOGICAL_RULES`` (the sharding of the tree over
-a device mesh) wait for the sharding slice (ROADMAP queue 1, item 12.10).
+``partition_specs`` turns the defs' logical axes into a tree of
+:class:`Spec` (one mesh-axis name, a tuple of names, or None per dim) by
+``LOGICAL_RULES``, the JAX package's ``PartitionSpec`` tree as plain
+tuples. ``placements`` turns a spec into the DTensor placements of a
+``torch.distributed`` ``DeviceMesh`` with named dims: a tensor dim named
+on a mesh dim is ``Shard(dim)`` there, every other mesh dim
+``Replicate()``. ``constrain`` is the counterpart of
+``with_sharding_constraint`` (a redistribute of a DTensor; a plain tensor
+passes through), ``on_mesh`` the context under which the layer code mixes
+DTensor parameters with the plain tensors it makes (positions, masks,
+RoPE tables), which it treats as replicated.
 """
 
 from __future__ import annotations
@@ -17,11 +26,16 @@ import dataclasses
 import math
 from typing import Any
 
+import contextlib
+
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import implicit_replication
 
-__all__ = ["ParamDef", "init_params", "count_params", "leaf_paths", "leaves",
-           "unflatten", "tree_map", "tree_like"]
+__all__ = ["ParamDef", "LOGICAL_RULES", "Spec", "init_params", "count_params",
+           "partition_specs", "placements", "constrain", "gathered", "on_mesh",
+           "leaf_paths", "leaves", "unflatten", "tree_map", "tree_like"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +47,39 @@ class ParamDef:
 
     def __post_init__(self):
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+LOGICAL_RULES: dict[str, Any] = {
+    "embed": "data",
+    "heads": "model",
+    "kv_heads": "model",
+    "ffn": "model",
+    "vocab": "model",
+    "expert": "model",
+    "inner": "model",
+    "layers": None,
+    "conv": "model",
+}
+
+
+def _entry(a):
+    """A spec entry as JAX's ``PartitionSpec`` keeps it: a tuple of one
+    axis is that axis, an empty one None."""
+    if isinstance(a, (tuple, list)):
+        a = tuple(a)
+        return None if not a else a[0] if len(a) == 1 else a
+    return a
+
+
+class Spec(tuple):
+    """A partition spec: per tensor dim, the mesh axis it is split over (a
+    name), the axes (a tuple of names, the first major) or None
+    (replicated). A tuple, so it equals the JAX package's
+    ``PartitionSpec`` read as a tuple (which also keeps a tuple of one
+    axis as the axis); missing trailing dims are replicated."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, (_entry(a) for a in axes))
 
 
 def leaf_paths(tree, prefix=()):
@@ -114,6 +161,76 @@ def init_params(defs, generator: torch.Generator, dtype=torch.float32,
         _fill(t, d, generator)
         flat[path] = t
     return unflatten(flat)
+
+
+def partition_specs(defs, rules=None, extra_rules=None) -> dict:
+    """The :class:`Spec` tree of a ParamDef tree: each logical axis mapped
+    by ``rules`` (default :data:`LOGICAL_RULES`, updated by
+    ``extra_rules``); an axis the rules do not name is replicated."""
+    rules = dict(LOGICAL_RULES if rules is None else rules)
+    if extra_rules:
+        rules.update(extra_rules)
+    return unflatten({path: Spec(*(rules.get(a) if a is not None else None
+                                   for a in d.axes))
+                      for path, d in leaf_paths(defs)})
+
+
+def _axes_of(entry) -> tuple:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def placements(spec, mesh) -> tuple:
+    """The DTensor placements of ``spec`` on ``mesh`` (a ``DeviceMesh``
+    with ``mesh_dim_names``): ``Shard(dim)`` on each mesh dim that
+    ``spec`` names for tensor dim ``dim``, ``Replicate()`` on the others.
+    A dim split over several mesh dims (``("pod", "data")``) is split
+    pod-major, as JAX splits it: its axes must come in the mesh's order."""
+    names = tuple(mesh.mesh_dim_names)
+    out: list = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        axes = _axes_of(entry)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec {spec}: axes {axes} of dim {dim} are not "
+                             f"in the mesh's order {names}")
+        for i in idx:
+            if not isinstance(out[i], Replicate):
+                raise ValueError(f"spec {spec} names mesh axis {names[i]} twice")
+            out[i] = Shard(dim)
+    return tuple(out)
+
+
+def constrain(x, spec):
+    """``x`` redistributed to ``spec``'s placements on its mesh where it is
+    a DTensor (the JAX package's ``with_sharding_constraint``); a plain
+    tensor, or ``spec=None``, passes through."""
+    if spec is None or not isinstance(x, DTensor):
+        return x
+    want = placements(Spec(*spec), x.device_mesh)
+    return x if tuple(x.placements) == want else x.redistribute(placements=want)
+
+
+def gathered(x, dim: int):
+    """``x`` with tensor dim ``dim`` whole on every rank (each mesh dim
+    that splits it replicated; a partial sum stays partial); a plain
+    tensor passes through."""
+    if not isinstance(x, DTensor):
+        return x
+    dim %= x.ndim
+    want = tuple(Replicate() if isinstance(p, Shard) and p.dim == dim else p
+                 for p in x.placements)
+    return x if tuple(x.placements) == want else x.redistribute(placements=want)
+
+
+def on_mesh(tree):
+    """A context for work on ``tree``'s tensors: where a leaf is a DTensor,
+    plain tensors mixed into DTensor operations count as replicated
+    (``implicit_replication``); otherwise nothing."""
+    if any(isinstance(x, DTensor) for x in leaves(tree)):
+        return implicit_replication()
+    return contextlib.nullcontext()
 
 
 def count_params(defs) -> int:

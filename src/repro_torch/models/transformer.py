@@ -17,6 +17,11 @@ The torch counterpart of ``repro.models.transformer``, every family:
   vlm    — internvl: stubbed ViT patch embeddings -> projector ->
            prepended to the dense LM's tokens; the loss scores the text
 
+With DTensor parameters (``Model.shard``) the same code runs over a
+device mesh under ``params.on_mesh``, forward and backward:
+``_act_constraint`` pins the residual stream to ``cfg.act_spec`` after
+each layer, as the JAX package's ``with_sharding_constraint`` does.
+
 Per-layer parameters are stacked on a leading ``layers`` axis, as in the
 JAX package, so the two parameter trees match leaf for leaf; a Python loop
 over that axis takes the place of ``lax.scan``. Training runs through
@@ -44,7 +49,7 @@ from . import moe as moe_mod
 from .config import ModelConfig
 from .layers import embed, nll, rmsnorm, softmax_cross_entropy, swiglu, unembed
 from .mamba2 import mamba2_block, mamba2_decode
-from .params import ParamDef, leaf_paths, unflatten
+from .params import ParamDef, constrain, gathered, leaf_paths, unflatten
 
 __all__ = ["model_defs", "forward", "forward_hidden", "prefill",
            "decode_step", "cache_defs", "loss_fn"]
@@ -250,6 +255,27 @@ def _stacks(cfg: ModelConfig) -> list[tuple[str, np.ndarray]]:
     return groups + [("layers", flags[k:])]
 
 
+def _act_constraint(x, cfg: ModelConfig):
+    """The residual stream redistributed to ``cfg.act_spec`` (set by the
+    launcher per mesh, typically ``(batch_axes, "model", None)``: batch and
+    sequence sharded, Megatron-SP style, so that the residuals remat
+    keeps are 1/TP the size) where it is a 3-dim DTensor; otherwise ``x``."""
+    if cfg.act_spec is None or x.ndim != 3:
+        return x
+    return constrain(x, cfg.act_spec)
+
+
+def _seq_whole(x):
+    """The (B, S, D) residual with the sequence whole on every rank where
+    it is a DTensor, taken at a layer's entry: the all-gather that
+    sequence-sharded residuals take before the projections. DTensor will
+    not flatten (B, S) for a product while S is split, nor, in the
+    backward, the gradient of a sublayer's output added to a split
+    residual; the layer's output goes back to ``act_spec``. A plain
+    tensor passes through."""
+    return gathered(x, 1) if x.ndim == 3 else x
+
+
 def _ffn(p, h, cfg: ModelConfig):
     """The layer's FFN: MoE where it has one, else SwiGLU (no aux loss)."""
     if "moe" in p:
@@ -260,6 +286,7 @@ def _ffn(p, h, cfg: ModelConfig):
 def _attn_layer_train(p, x, cfg: ModelConfig, is_global, pos, cross_kv=None):
     """One decoder layer (attention, the cross-attention to ``cross_kv``
     where given, FFN/MoE) -> (x, aux)."""
+    x = _seq_whole(x)
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
     if cfg.mla is not None:
         x = x + attn.mla_attention(p, h, cfg, pos=pos)
@@ -269,7 +296,7 @@ def _attn_layer_train(p, x, cfg: ModelConfig, is_global, pos, cross_kv=None):
         hx = rmsnorm(x, p["norm_x"], cfg.norm_eps)
         x = x + _cross_attention(p["cross"], hx, cross_kv, cfg)
     f, aux = _ffn(p, rmsnorm(x, p["norm2"], cfg.norm_eps), cfg)
-    return x + f, aux
+    return _act_constraint(x + f, cfg), aux
 
 
 def _cross_attention(p, h, enc_kv, cfg: ModelConfig):
@@ -280,7 +307,7 @@ def _cross_attention(p, h, enc_kv, cfg: ModelConfig):
     activations, as ``attention.gqa_decode`` does)."""
     B, S, _ = h.shape
     H, hd = cfg.n_heads, cfg.hd
-    q = (h @ p["wq"].to(h.dtype)).reshape(B, S, H, hd)
+    q = attn.split_heads(h @ p["wq"].to(h.dtype), H, hd)
     k, v = enc_kv
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(hd)
     pr = torch.softmax(s, dim=-1)
@@ -290,7 +317,9 @@ def _cross_attention(p, h, enc_kv, cfg: ModelConfig):
 
 
 def _mamba_layer(p, x, cfg: ModelConfig):
-    return x + mamba2_block(p, rmsnorm(x, p["norm"], cfg.norm_eps), cfg)
+    x = _seq_whole(x)
+    return _act_constraint(
+        x + mamba2_block(p, rmsnorm(x, p["norm"], cfg.norm_eps), cfg), cfg)
 
 
 def _shared_cfg(cfg: ModelConfig) -> ModelConfig:
@@ -427,7 +456,7 @@ def forward_hidden(params: dict, batch: dict, cfg: ModelConfig,
             for p, fl, ckv in zip(_layers(params[name]), flags, cross):
                 x, a = layer(p, x, is_global=bool(fl), cross_kv=ckv)
                 aux = aux + a
-    return rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
+    return rmsnorm(_seq_whole(x), params["final_norm"], cfg.norm_eps), aux
 
 
 def _unembed_w(params, cfg):

@@ -9,6 +9,11 @@ the module, so the methods take no ``params`` argument. The parameters do
 not require gradients until the caller asks (``requires_grad_()``, as on
 any module, which the trainer does); the serving methods run under
 ``torch.no_grad`` either way.
+
+``specs`` and ``cache_specs`` are the JAX package's partition-spec trees
+(``params.Spec``); :meth:`Model.shard` places the parameters on a
+``DeviceMesh`` by such a tree, each one a DTensor parameter from then
+on. The methods run on DTensor parameters under ``params.on_mesh``.
 """
 
 from __future__ import annotations
@@ -21,7 +26,8 @@ from repro_torch.core.device import resolve_device
 
 from . import transformer as tfm
 from .config import ModelConfig
-from .params import _fill, count_params, init_params, leaf_paths
+from .params import (_fill, count_params, init_params, leaf_paths, on_mesh,
+                     partition_specs, placements)
 
 __all__ = ["Model", "active_params"]
 
@@ -90,6 +96,29 @@ class Model(nn.Module):
             _fill(node, d, generator)
         return self
 
+    def specs(self, extra_rules=None) -> dict:
+        """The parameters' partition specs (``params.LOGICAL_RULES``)."""
+        return partition_specs(self.defs(), extra_rules=extra_rules)
+
+    @torch.no_grad()
+    def shard(self, mesh, specs: dict) -> "Model":
+        """Place every parameter on ``mesh`` by its spec in ``specs`` (a
+        tree like :meth:`specs`, e.g. after ``launch.dryrun.
+        sanitize_specs``): each becomes a DTensor ``nn.Parameter``
+        holding its shard, with its ``requires_grad`` kept. Every rank of
+        the mesh calls this with the same full values."""
+        from torch.distributed.tensor import distribute_tensor
+
+        tree = dict(leaf_paths(specs))
+        for name, p in list(self.named_parameters()):
+            path = tuple(name.split("."))
+            node = self
+            for k in path[:-1]:
+                node = getattr(node, k)
+            d = distribute_tensor(p.detach(), mesh, placements(tree[path], mesh))
+            setattr(node, path[-1], nn.Parameter(d, requires_grad=p.requires_grad))
+        return self
+
     def n_params(self) -> int:
         return count_params(self.defs())
 
@@ -99,23 +128,37 @@ class Model(nn.Module):
     # ---- training
     def loss(self, batch: dict, remat: bool | str = True):
         """(ce + aux, (ce, aux)) of ``batch`` (``transformer.loss_fn``),
-        differentiable in the parameters that require gradients."""
-        return tfm.loss_fn(self.params(), batch, self.cfg, remat)
+        differentiable in the parameters that require gradients. With
+        DTensor parameters take the gradient under ``params.on_mesh``
+        too (the backward mixes plain tensors in as the forward does)."""
+        params = self.params()
+        with on_mesh(params):
+            return tfm.loss_fn(params, batch, self.cfg, remat)
 
     # ---- inference
     @torch.no_grad()
     def forward(self, batch: dict):
         """(logits f32 (B,S,V), aux) over the whole sequence."""
-        return tfm.forward(self.params(), batch, self.cfg)
+        params = self.params()
+        with on_mesh(params):
+            return tfm.forward(params, batch, self.cfg)
 
     @torch.no_grad()
     def prefill(self, batch: dict) -> torch.Tensor:
         """Last-position logits (B,V) — the inference prefill step."""
-        return tfm.prefill(self.params(), batch, self.cfg)
+        params = self.params()
+        with on_mesh(params):
+            return tfm.prefill(params, batch, self.cfg)
 
     # ---- serving
     def cache_defs(self, batch: int, max_len: int):
         return tfm.cache_defs(self.cfg, batch, max_len)
+
+    def cache_specs(self, batch: int, max_len: int, extra_rules=None) -> dict:
+        """The decode cache's partition specs (``extra_rules`` names the
+        cache's ``batch`` and ``seq`` axes)."""
+        return partition_specs(self.cache_defs(batch, max_len),
+                               extra_rules=extra_rules)
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16) -> dict:
         """A zero cache of ``max_len`` positions on this model's device."""
@@ -125,4 +168,6 @@ class Model(nn.Module):
     @torch.no_grad()
     def decode(self, cache: dict, batch: dict):
         """One-token decode: (logits (B,1,V), cache written in place)."""
-        return tfm.decode_step(self.params(), cache, batch, self.cfg)
+        params = self.params()
+        with on_mesh(params):
+            return tfm.decode_step(params, cache, batch, self.cfg)

@@ -27,6 +27,7 @@ result into the ``.npz``; a rank that has not finished within
 
 from __future__ import annotations
 
+import json
 import os
 import subprocess
 import sys
@@ -1359,13 +1360,282 @@ def _recipe_lm_encdec() -> dict[str, np.ndarray]:
     return res
 
 
+# ------------------------------------------------------- the device mesh
+
+# the meshes sanitize_specs is held on, as axis sizes (the JAX function
+# reads only mesh.shape)
+SHARD_MESHES = {"16x16": {"data": 16, "model": 16},
+                "2x16x16": {"pod": 2, "data": 16, "model": 16},
+                "4x2": {"data": 4, "model": 2}, "2x2": {"data": 2, "model": 2}}
+# the dry run's decode cache rules (repro.launch.dryrun, decode): B >= 8
+# splits the batch over the batch axes and the sequence over "model"; B=1
+# splits the sequence over ("data", "model")
+DECODE_RULES = {"b8": (8, 64, {"batch": "data", "seq": "model",
+                               "kv_heads": None, "heads": None}),
+                "b1": (1, 64, {"batch": None, "seq": ("data", "model"),
+                               "kv_heads": None, "heads": None})}
+HILBERT_NS = tuple(2 ** i for i in range(10))
+TORUS_SHAPE, TORUS_SEED = (4, 4, 4), 5
+SHARD_STEPS = 3
+SHARD_TIMEOUT_S = 300  # 8 gloo ranks take about a minute alone, more beside other tests
+
+
+class TorusDevice:
+    """A device with torus ``coords``, as a TPU device has them."""
+
+    def __init__(self, id_: int, coords):
+        self.id, self.coords = id_, coords
+
+
+def torus_devices() -> list:
+    """The devices of a 4x4x4 torus, ids in coordinate order, shuffled."""
+    n = int(np.prod(TORUS_SHAPE))
+    devs = [TorusDevice(i, tuple(int(c) for c in np.unravel_index(i, TORUS_SHAPE)))
+            for i in range(n)]
+    return [devs[i] for i in np.random.default_rng(TORUS_SEED).permutation(n)]
+
+
+def spec_code(spec) -> str:
+    """A partition spec (JAX's or the port's) as JSON, read as a tuple."""
+    return json.dumps([list(a) if isinstance(a, tuple) else a for a in tuple(spec)])
+
+
+def put_specs(res: dict, prefix: str, tree) -> None:
+    """Every spec of a nested-dict spec tree into ``res`` as JSON."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            put_specs(res, f"{prefix}/{k}", v)
+        else:
+            res[f"{prefix}/{k}"] = np.asarray(spec_code(v))
+
+
+def _recipe_sharding() -> dict[str, np.ndarray]:
+    """The JAX package's sharding pieces, on 512 host devices: every arch's
+    partition specs and decode cache specs, ``sanitize_specs`` over
+    :data:`SHARD_MESHES`, the Hilbert device order, the production meshes,
+    and three single-device train steps of the elastic configuration from
+    its initial weights (which it exports)."""
+    import dataclasses
+    import types
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_config
+    from repro.configs.registry import ARCHS
+    from repro.data import TokenPipeline
+    from repro.launch.dryrun import sanitize_specs
+    from repro.launch.mesh import (batch_axes, hilbert_device_permutation,
+                                   make_production_mesh)
+    from repro.models import build_model
+    from repro.train import OptConfig, TrainConfig, make_train_step
+    from repro.train.optimizer import init_opt_state
+
+    res = {}
+    for arch in ARCHS:
+        m = build_model(get_config(arch))
+        specs, abst = m.specs(), m.abstract()
+        put_specs(res, f"specs/{arch}", specs)
+        for mesh_name, sizes in SHARD_MESHES.items():
+            mesh = types.SimpleNamespace(shape=sizes)
+            put_specs(res, f"sanitized/{arch}/{mesh_name}",
+                      sanitize_specs(mesh, specs, abst))
+        for case, (B, S, rules) in DECODE_RULES.items():
+            cs = m.cache_specs(B, S, extra_rules=rules)
+            put_specs(res, f"cache/{arch}/{case}", cs)
+            mesh = types.SimpleNamespace(shape=SHARD_MESHES["16x16"])
+            put_specs(res, f"cache_sanitized/{arch}/{case}",
+                      sanitize_specs(mesh, cs, m.abstract_cache(B, S)))
+    for n in HILBERT_NS:
+        res[f"hilbert/{n}"] = np.asarray(hilbert_device_permutation(list(range(n))))
+    res["hilbert/torus"] = np.asarray([d.id for d in hilbert_device_permutation(
+        torus_devices())])
+    for name, multi in (("single", False), ("multi", True)):
+        mesh = make_production_mesh(multi_pod=multi)
+        res[f"mesh/{name}/ids"] = np.vectorize(lambda d: d.id)(mesh.devices)
+        res[f"mesh/{name}/names"] = np.asarray(json.dumps(list(mesh.axis_names)))
+        res[f"mesh/{name}/batch_axes"] = np.asarray(json.dumps(list(batch_axes(mesh))))
+    cfg = dataclasses.replace(get_config("smollm-360m"), **elastic_cfg())
+    m = build_model(cfg)
+    params = m.init(jax.random.PRNGKey(0))
+    put_tree(res, "init", params)
+    opt = init_opt_state(params)
+    step = jax.jit(make_train_step(m, TrainConfig(opt=OptConfig(**elastic_opt()))))
+    pipe = TokenPipeline(vocab=cfg.vocab, **elastic_pipe())
+    for i in range(SHARD_STEPS):
+        batch = {k: jnp.asarray(a) for k, a in pipe.batch_at(i).items()}
+        params, opt, metrics = step(params, opt, batch)
+        res[f"steps/{i}/loss"] = np.asarray(metrics["loss"])
+        res[f"steps/{i}/grad_norm"] = np.asarray(metrics["grad_norm"])
+    put_tree(res, "final", params)
+    return res
+
+
+def _recipe_elastic() -> dict[str, np.ndarray]:
+    """The JAX package's elastic training run on 8 host devices: 3 steps
+    on a (4, 2) mesh, a checkpoint, a restore onto (2, 2), 3 more steps,
+    from ``PRNGKey(0)``'s weights (exported): the six losses and whether
+    the reshard kept the parameters bit for bit."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+    from repro.checkpoint import ckpt
+    from repro.configs import get_config
+    from repro.data import TokenPipeline
+    from repro.launch.dryrun import sanitize_specs
+    from repro.models import build_model
+    from repro.train import OptConfig, TrainConfig, make_train_step
+    from repro.train.optimizer import init_opt_state
+
+    work = Path(sys.argv[2]).parent
+    cfg = dataclasses.replace(get_config("smollm-360m"), **elastic_cfg())
+    model = build_model(cfg)
+    pipe = TokenPipeline(vocab=cfg.vocab, **elastic_pipe())
+    step = jax.jit(make_train_step(model, TrainConfig(opt=OptConfig(**elastic_opt()))))
+
+    def mesh_of(shape):
+        n = int(np.prod(shape))
+        return Mesh(np.asarray(jax.devices()[:n]).reshape(shape), ("data", "model"))
+
+    def shardings(mesh):
+        specs = sanitize_specs(mesh, model.specs(), model.abstract())
+        return jax.tree.map(lambda s: NamedSharding(mesh, s), specs,
+                            is_leaf=lambda x: isinstance(x, P))
+
+    res = {}
+    params = model.init(jax.random.PRNGKey(0))
+    put_tree(res, "init", params)
+    mesh_a = mesh_of((4, 2))
+    sh_a = shardings(mesh_a)
+    opt = init_opt_state(params)
+    params = jax.device_put(params, sh_a)
+    opt = {"m": jax.device_put(opt["m"], sh_a), "v": jax.device_put(opt["v"], sh_a),
+           "step": opt["step"]}
+    losses = []
+    with mesh_a:
+        for i in range(SHARD_STEPS):
+            batch = {k: jnp.asarray(v) for k, v in pipe.batch_at(i).items()}
+            params, opt, m = step(params, opt, batch)
+            losses.append(float(m["loss"]))
+    ckpt_dir = str(work / "jax_elastic")
+    ckpt.save(ckpt_dir, SHARD_STEPS, {"params": params, "opt_state": opt},
+              meta={"step": SHARD_STEPS})
+    before = jax.tree.map(np.asarray, params)
+    mesh_b = mesh_of((2, 2))
+    sh_b = shardings(mesh_b)
+    tree, meta = ckpt.restore(ckpt_dir, shardings={
+        "params": sh_b, "opt_state": {"m": sh_b, "v": sh_b}})
+    params_b, opt_b = tree["params"], tree["opt_state"]
+    opt_b["step"] = jnp.asarray(opt_b["step"])
+    res["bit_exact"] = np.bool_(all(
+        np.array_equal(a, b) for a, b in zip(
+            jax.tree.leaves(before), jax.tree.leaves(jax.tree.map(np.asarray, params_b)))))
+    with mesh_b:
+        for i in range(meta["step"], meta["step"] + SHARD_STEPS):
+            batch = {k: jnp.asarray(v) for k, v in pipe.batch_at(i).items()}
+            params_b, opt_b, m = step(params_b, opt_b, batch)
+            losses.append(float(m["loss"]))
+    res["losses"] = np.asarray(losses)
+    return res
+
+
+def elastic_cfg() -> dict:
+    """The elastic run's reduced smollm-360m, the same in both packages."""
+    from repro_torch.launch.elastic import ELASTIC_CFG
+    return dict(ELASTIC_CFG)
+
+
+def elastic_pipe() -> dict:
+    from repro_torch.launch.elastic import ELASTIC_PIPE
+    return dict(ELASTIC_PIPE)
+
+
+def elastic_opt() -> dict:
+    from repro_torch.launch.elastic import ELASTIC_OPT
+    return dict(ELASTIC_OPT)
+
+
+def shard_arrays(tmp_path, case: str, n: int, inputs: dict | None = None
+                 ) -> dict[str, np.ndarray]:
+    """Run the torch package's mesh case ``case`` on ``n`` gloo ranks (one
+    process each, file rendezvous under ``tmp_path``, killed after
+    :data:`SHARD_TIMEOUT_S`), with ``inputs`` saved for them; return what
+    the ranks saved, merged."""
+    import time
+
+    tmp_path = Path(tmp_path)
+    src = tmp_path / f"{case}-in.npz"
+    np.savez(src, **(inputs or {}))
+    init_file = tmp_path / f"{case}-rendezvous"
+    init_file.unlink(missing_ok=True)
+    env = dict(_child_env(), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, __file__, "shard_rank", case,
+                               str(r), str(n), str(init_file), str(src),
+                               str(tmp_path / f"{case}-rank{r}.npz")],
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(n)]
+    deadline = time.monotonic() + SHARD_TIMEOUT_S
+    codes, logs = [], []
+    try:
+        for p in procs:
+            try:
+                out, _ = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+                codes.append(p.returncode)
+                logs.append(out)
+            except subprocess.TimeoutExpired:
+                codes.append("timeout")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(c != 0 for c in codes):
+        raise RuntimeError(f"{case} ranks exited {codes}:\n" + "\n".join(
+            log[-3000:] for log in logs))
+    merged = {}
+    for r in range(n):
+        with np.load(tmp_path / f"{case}-rank{r}.npz") as z:
+            merged.update({k: z[k] for k in z.files})
+    return merged
+
+
+def _shard_rank_main(case: str, rank: int, n: int, init_file: str, src: str,
+                     out: str) -> None:
+    """One gloo rank of a mesh case (``tests/_torch_shard_cases.py``), with
+    the case's directory for any files its ranks share."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    import _torch_shard_cases
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=n, rank=rank,
+                            timeout=timedelta(seconds=60))
+    try:
+        with np.load(src) as z:
+            inputs = {k: z[k] for k in z.files}
+        res = getattr(_torch_shard_cases, case)(rank, inputs, Path(src).parent)
+        np.savez(out, **{f"{k}/rank{rank}": v for k, v in res.items()})
+    finally:
+        dist.destroy_process_group()
+
+
 RECIPES = {"core": _recipe_core, "gol3d": _recipe_gol3d, "pack": _recipe_pack,
            "halo": _recipe_halo, "distributed": _recipe_distributed,
            "flash": _recipe_flash, "lm": _recipe_lm, "ckpt": _recipe_ckpt,
            "xrun": _recipe_xrun, "serve_cli": _recipe_serve_cli,
            "train": _recipe_train, "lm_archs": _recipe_lm_archs,
            "lm_moe": _recipe_lm_moe, "lm_ssm": _recipe_lm_ssm,
-           "lm_encdec": _recipe_lm_encdec}
+           "lm_encdec": _recipe_lm_encdec, "sharding": _recipe_sharding,
+           "elastic": _recipe_elastic}
 
 
 if __name__ == "__main__":
@@ -1377,8 +1647,14 @@ if __name__ == "__main__":
         _rank_main(int(rank), tuple(int(p) for p in mesh.split("x")),
                    init_file, out, device)
         sys.exit(0)
-    if sys.argv[1] == "distributed":
+    if sys.argv[1] == "shard_rank":
+        case, rank, n, init_file, src, out = sys.argv[2:8]
+        _shard_rank_main(case, int(rank), int(n), init_file, src, out)
+        sys.exit(0)
+    if sys.argv[1] in ("distributed", "elastic"):
         os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    if sys.argv[1] == "sharding":
+        os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=512"
     import jax
     import jax._src.core
 

@@ -40,7 +40,8 @@ def test_import_pulls_in_no_jax():
             "repro_torch.configs.deepseek_moe_16b, repro_torch.models.mamba2, "
             "repro_torch.configs.mamba2_2p7b, repro_torch.configs.zamba2_1p2b, "
             "repro_torch.configs.whisper_small, "
-            "repro_torch.configs.internvl2_76b, sys; "
+            "repro_torch.configs.internvl2_76b, repro_torch.launch.mesh, "
+            "repro_torch.launch.dryrun, repro_torch.models.params, sys; "
             "bad = [m for m in sys.modules if m in ('jax', 'repro', 'ml_dtypes', "
             "'benchmarks') or m.startswith(('jax.', 'repro.', 'ml_dtypes.', "
             "'benchmarks.'))]; "
@@ -49,6 +50,45 @@ def test_import_pulls_in_no_jax():
                           text=True, timeout=120,
                           env={**os.environ, "PYTHONPATH": str(REPO / "src")})
     assert proc.returncode == 0, proc.stderr
+
+
+def test_sharded_paths_pull_in_no_jax(tmp_path):
+    """A train step and a decode step over a one-rank gloo mesh, with
+    the flash path, MoE dispatch and a sharded checkpoint: no JAX, JAX
+    package, ml_dtypes or benchmarks module comes in."""
+    code = f"""
+import dataclasses, sys, torch, torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.checkpoint import ckpt
+from repro_torch.configs import deepseek_moe_16b, smollm_360m
+from repro_torch.launch.dryrun import sanitize_specs
+from repro_torch.launch.mesh import batch_axes, hilbert_device_permutation
+from repro_torch.models import Model
+from repro_torch.train import TrainConfig, init_opt_state, make_train_step
+dist.init_process_group("gloo", init_method="file://{tmp_path / 'rdv'}",
+                        world_size=1, rank=0)
+mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+for base in (smollm_360m.SMOKE, deepseek_moe_16b.SMOKE):
+    cfg = dataclasses.replace(base, use_flash_kernel=True, ep_axis="model",
+                              act_spec=(batch_axes(mesh), "model", None))
+    m = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    m.requires_grad_().shard(mesh, sanitize_specs(mesh, m.specs(), m.defs()))
+    p = m.params()
+    toks = torch.randint(0, cfg.vocab, (2, 9))
+    p, s, out = make_train_step(m, TrainConfig())(
+        p, init_opt_state(p), {{"tokens": toks[:, :-1], "labels": toks[:, 1:]}})
+    assert torch.isfinite(out["loss"])
+ckpt.save("{tmp_path / 'ck'}", 1, {{"params": p}})
+hilbert_device_permutation(list(range(8)))
+dist.destroy_process_group()
+bad = [m for m in sys.modules if m in ('jax', 'repro', 'ml_dtypes', 'benchmarks')
+       or m.startswith(('jax.', 'repro.', 'ml_dtypes.', 'benchmarks.'))]
+assert not bad, bad
+"""
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120,
+                          env={**os.environ, "PYTHONPATH": str(REPO / "src")})
+    assert proc.returncode == 0, proc.stderr[-3000:]
 
 
 def test_sources_name_no_jax_import():
@@ -69,7 +109,7 @@ def test_sources_name_no_jax_import():
             "deepseek_coder_33b.py", "phi4_mini_3p8b.py",
             "deepseek_v2_lite_16b.py", "deepseek_moe_16b.py", "mamba2.py",
             "mamba2_2p7b.py", "zamba2_1p2b.py", "whisper_small.py",
-            "internvl2_76b.py"} <= names
+            "internvl2_76b.py", "mesh.py", "dryrun.py"} <= names
     assert len(files) > 10
     for f in files:
         assert not pat.search(f.read_text()), f
