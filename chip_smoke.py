@@ -206,7 +206,17 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    main path), the sharded tree (params, m, v) checkpointed and restored
    with ``shardings=`` bit for bit, then ms per step, peak memory and one
    profiled step's busy share beside the unsharded step's; its readings go
-   under ``flash_attention_fwd.mesh``. Ranks sharing the one card have no
+   under ``flash_attention_fwd.mesh``. With that mesh up, the dry run
+   (``dryrun_check``): ``launch.dryrun.run_cell`` counts three full-width
+   smollm-360m cells on the card (``DRYRUN_CELLS``: train B=4, S=4096;
+   prefill B=4, S=2048; decode B=4 at 2048 positions; flash=0) and runs
+   each once more for its ms and peak memory beside its roofline terms; a
+   child process without CUDA counts the same cells on meta (flops, flops
+   by kind, bytes, collective bytes and argument bytes equal to the
+   card's as integers) and runs the production CLI; the prefill at
+   flash=1 charges 32 ``flash_attention_fwd`` launches (counted as a main
+   path: 64, the step before the counted one included); its readings go
+   under ``flash_attention_fwd.dryrun``. Ranks sharing the one card have no
    backend (nccl refuses them, gloo's DTensor collectives crash on CUDA
    tensors), so the elastic CLI's 8 ranks are not run on the card;
 6. the other LMs (``archs_phase``, the config modules of
@@ -791,6 +801,173 @@ def shared_card_backends() -> dict:
     return out
 
 
+# the dry run's cells on the card, cut from train_4k, prefill_32k and
+# decode_32k to one card's batch: (seq, batch, mode)
+DRYRUN_CELLS = {"chip_train": (4096, 4, "train"), "chip_prefill": (2048, 4, "prefill"),
+                "chip_decode": (2048, 4, "decode")}
+# what the count on meta must equal on the card, as integers
+DRYRUN_KEYS = ("flops_per_dev", "flops_by_kind", "bytes_per_dev", "coll_bytes")
+
+# the dry run on the meta device in a process that uses no CUDA: the
+# DRYRUN_CELLS of full-width smollm-360m on a (1, 1) mesh of torch's fake
+# process group of one rank while, in a process of its own, the production
+# CLI (train_4k on the single-pod mesh, 256 fake ranks) writes into argv[2]
+DRYRUN_META = """
+import json, subprocess, sys, threading, time
+cells, out_dir = json.loads(sys.argv[1]), sys.argv[2]
+cli_t0, cli_out = time.perf_counter(), {}
+cli = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun",
+                        "--arch", "smollm-360m", "--shape", "train_4k", "--mesh",
+                        "single", "--out", out_dir], stdout=subprocess.PIPE,
+                       stderr=subprocess.STDOUT, text=True)
+def wait_cli():
+    cli_out["text"] = cli.communicate(timeout=600)[0]
+    cli_out["s"] = time.perf_counter() - cli_t0
+waiter = threading.Thread(target=wait_cli)
+waiter.start()
+import torch, torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from repro_torch.configs.registry import ShapeSpec
+from repro_torch.launch import dryrun
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
+mesh = DeviceMesh("cpu", [[0]], mesh_dim_names=("data", "model"))
+got = {}
+for name, (S, B, mode) in cells.items():
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell("smollm-360m", ShapeSpec(name, S, B, mode), mesh,
+                          "meta_1x1", dict(dryrun.DEFAULT_OPTS))
+    got[name] = {**{k: rec[k] for k in ("flops_per_dev", "flops_by_kind",
+                                        "bytes_per_dev", "coll_bytes",
+                                        "memory_per_device", "t_compute_s",
+                                        "t_memory_s", "t_collective_s",
+                                        "t_bound_s")},
+                 "seconds": time.perf_counter() - t0}
+dist.destroy_process_group()
+waiter.join()
+assert cli.returncode == 0, cli_out["text"][-3000:]
+assert not torch.cuda.is_initialized(), "the meta dry run touched CUDA"
+roofline = [ln.strip() for ln in cli_out["text"].splitlines()
+            if ln.strip().startswith("roofline:")]
+print("DRYRUN_META " + json.dumps({"cells": got, "cli_s": cli_out["s"],
+                                   "cli_roofline": roofline[-1]}), flush=True)
+"""
+
+
+def dryrun_check(dev, mesh, work: str) -> dict:
+    """The dry run (``repro_torch.launch.dryrun.run_cell``) on the card, on
+    the one-rank nccl ``mesh`` (1, 1), against the same count on meta.
+
+    Full-width smollm-360m, ``DEFAULT_OPTS`` (flash=0): each cell of
+    ``DRYRUN_CELLS`` counted on the card, then run once more outside the
+    count (ms, and the allocator's peak over the step against the count's
+    predicted peak); meanwhile a child process with no CUDA
+    (``DRYRUN_META``, ``CUDA_VISIBLE_DEVICES`` empty) counts the same
+    cells on meta under a one-rank fake group, whose flops, flops by kind,
+    bytes, collective bytes and argument bytes must equal the card's as
+    integers, then runs the production CLI (train_4k, the single-pod mesh
+    under 256 fake ranks). Last the prefill at flash=1 on the card, counted
+    as a main path: 32 ``flash_attention_fwd`` launches charged by the
+    count, and 64 by the per-design counter, all sm90 (``run_cell`` runs
+    the step once before the one it counts)."""
+    import torch
+
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_META, json.dumps(DRYRUN_CELLS),
+         os.path.join(work, "dryrun_cli")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": "",
+             "PYTHONPATH": str(ROOT / "src")})
+    try:
+        card = {}
+        for name, (S, B, mode) in DRYRUN_CELLS.items():
+            t1 = time.perf_counter()
+            rec = dryrun.run_cell("smollm-360m", ShapeSpec(name, S, B, mode), mesh,
+                                  "card_1x1", dict(dryrun.DEFAULT_OPTS), device=dev,
+                                  measure=True)
+            rec["seconds"] = time.perf_counter() - t1
+            card[name] = rec
+            torch.cuda.empty_cache()
+        _build.reset_launches()
+        flash = dryrun.run_cell("smollm-360m", ShapeSpec("chip_prefill", 2048, 4, "prefill"),
+                                mesh, "card_1x1", {**dryrun.DEFAULT_OPTS, "flash": 1},
+                                device=dev)
+        counts, by_design = dict(_build.LAUNCHES), dict(_build.FLASH_DESIGN_LAUNCHES)
+        n_flash = 32  # one a layer; run_cell runs the step twice, counting the second
+        charged = flash["kernels"].get("flash_attention_fwd", {}).get("launches")
+        check(charged == n_flash, f"dry run flash=1: {charged} charged flash launches, "
+              f"want {n_flash}")
+        check(counts == {**{k: 0 for k in counts}, "flash_attention_fwd": 2 * n_flash}
+              and by_design == {"sm90": 2 * n_flash, "simple": 0},
+              f"dry run flash=1 launches {counts}, by design {by_design}, want "
+              f"{2 * n_flash} sm90 (the steady-state step and the one before it)")
+        torch.cuda.empty_cache()
+        try:
+            text, err = child.communicate(timeout=max(300 - (time.perf_counter() - t0), 30))
+        except subprocess.TimeoutExpired:
+            child.kill()
+            text, err = child.communicate()
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.communicate()
+    line = next((ln for ln in text.splitlines() if ln.startswith("DRYRUN_META ")), None)
+    check(child.returncode == 0 and line is not None,
+          f"the meta dry run failed (exit {child.returncode}): {err[-3000:]}")
+    meta = json.loads(line[len("DRYRUN_META "):])
+    cli_line = meta["cli_roofline"]
+    out = {}
+    for name, rec in card.items():
+        m = meta["cells"][name]
+        for k in DRYRUN_KEYS:
+            check(rec[k] == m[k], f"dry run {name}: {k} on the card {rec[k]} != "
+                  f"on meta {m[k]}")
+        arg, marg = (rec["memory_per_device"]["argument_bytes"],
+                     m["memory_per_device"]["argument_bytes"])
+        check(arg == marg, f"dry run {name}: argument bytes on the card {arg} != "
+              f"on meta {marg}")
+        ms, bound_ms = rec["measured"]["ms"], 1e3 * rec["t_bound_s"]
+        peak, want_peak = (rec["measured"]["peak_bytes"],
+                           rec["memory_per_device"]["peak_bytes"])
+        log(f"dry run {name} (smollm-360m S={DRYRUN_CELLS[name][0]} "
+            f"B={DRYRUN_CELLS[name][1]}, card (1, 1) mesh): flops {rec['flops_per_dev']} "
+            f"({rec['flops_by_kind']}), bytes {rec['bytes_per_dev']}, collective "
+            f"{sum(rec['coll_bytes'].values())}: equal to the meta count; roofline "
+            f"compute {1e3 * rec['t_compute_s']:.3f} ms, memory "
+            f"{1e3 * rec['t_memory_s']:.3f} ms, collective "
+            f"{1e3 * rec['t_collective_s']:.3f} ms -> bound {bound_ms:.3f} ms "
+            f"({rec['bottleneck']}); measured {ms:.3f} ms ({ms / bound_ms:.2f}x the "
+            f"bound); peak {peak / 2**30:.3f} GiB against the predicted "
+            f"{want_peak / 2**30:.3f} GiB ({peak / want_peak:.3f}x); counted in "
+            f"{rec['t_count_s']:.1f} s, on meta in {m['seconds']:.1f} s")
+        out[name] = dict(
+            seq=DRYRUN_CELLS[name][0], batch=DRYRUN_CELLS[name][1],
+            flops=rec["flops_per_dev"], flops_by_kind=rec["flops_by_kind"],
+            matmul_flops_by_dtype=rec["matmul_flops_by_dtype"],
+            bytes=rec["bytes_per_dev"], coll_bytes=rec["coll_bytes"],
+            t_compute_ms=1e3 * rec["t_compute_s"], t_memory_ms=1e3 * rec["t_memory_s"],
+            t_collective_ms=1e3 * rec["t_collective_s"], bound_ms=bound_ms,
+            bottleneck=rec["bottleneck"], measured_ms=ms, measured_over_bound=ms / bound_ms,
+            peak_bytes=peak, predicted_peak_bytes=want_peak,
+            memory=rec["memory_per_device"], torch_raw=rec["torch_raw"],
+            count_s=rec["t_count_s"], meta_s=m["seconds"], meta_equal=True)
+    log(f"dry run prefill flash=1 on the card: {charged} flash_attention_fwd launches "
+        f"charged ({flash['kernels']['flash_attention_fwd']['bytes']} bytes), all sm90; "
+        f"bytes {flash['bytes_per_dev']}, roofline bound {1e3 * flash['t_bound_s']:.3f} ms")
+    log(f"dry run CLI on meta (smollm-360m train_4k, single pod, 256 fake ranks): "
+        f"{cli_line} ({meta['cli_s']:.1f} s); the phase {time.perf_counter() - t0:.1f} s")
+    return dict(launches=2 * n_flash, cells=out, flash_prefill=dict(
+        launches=charged, charged_bytes=flash["kernels"]["flash_attention_fwd"]["bytes"],
+        bytes=flash["bytes_per_dev"], bound_ms=1e3 * flash["t_bound_s"]),
+        cli_roofline=cli_line, cli_s=meta["cli_s"],
+        seconds=time.perf_counter() - t0)
+
+
 def mesh_phase(dev, unsharded: dict) -> dict:
     """The training path over a torch device mesh: ``smollm-360m`` at full
     width (32 layers, bf16 activations, f32 master weights,
@@ -965,6 +1142,12 @@ def mesh_phase(dev, unsharded: dict) -> dict:
                f"a launch" if busy else
                "profiled step: no device time recorded (not measured)")
             + f" ({time.perf_counter() - t0:.1f} s)")
+        # the dry run on the card, with the mesh up (the phase's own
+        # model, its state and their gradients freed first)
+        del model, params, state, tree, sh, step, m
+        torch.cuda.empty_cache()
+        dry = dryrun_check(dev, mesh, tmp)
+        launches += dry["launches"]
         shared = shared_card_backends()
         log(f"mesh: two ranks sharing the card, a DTensor all-gather: "
             + "; ".join(f"{b} exit {r['exit_codes']} ({r['last_line'][:160]})"
@@ -981,7 +1164,7 @@ def mesh_phase(dev, unsharded: dict) -> dict:
             wall_ms=wall, busy_share=busy_share,
             flash_launch_ms=flash_ms if busy else None,
             seconds=time.perf_counter() - t0,
-            shared_card=shared))
+            shared_card=shared), dryrun=dry)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         dist.destroy_process_group()
@@ -3607,6 +3790,7 @@ def main() -> int:
     me = mesh_phase(dev, tr["training"])
     flash_row["launches"] += me["launches"]
     flash_row["mesh"] = me["mesh"]
+    flash_row["dryrun"] = me["dryrun"]
 
     # the other decoder LMs (their prefills' launches counted, added)
     ar = archs_phase(dev, flash_err)

@@ -2,7 +2,11 @@
 
 The torch counterpart of ``repro.configs.registry``: every architecture
 of the JAX package, its configurations in a module of
-``repro_torch.configs``; an unknown name raises ``KeyError``.
+``repro_torch.configs``; an unknown name raises ``KeyError``. The 10
+architectures × their 4 LM shapes are 40 cells of the dry run
+(``launch/dryrun.py``). ``long_500k`` needs sub-quadratic attention and
+runs only for the SSM, hybrid and sliding-window archs (``LONG_OK``); the
+pure full-attention archs record it as a skip with its reason.
 """
 
 from __future__ import annotations
@@ -16,8 +20,8 @@ import torch
 from repro_torch.core.device import resolve_device
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["ARCHS", "PORTED", "SHAPES", "ShapeSpec", "get_config",
-           "get_smoke", "concrete_batch"]
+__all__ = ["ARCHS", "SHAPES", "get_config", "get_smoke", "input_specs",
+           "cells", "shape_skip_reason", "LONG_OK"]
 
 ARCHS = ("smollm-360m", "gemma3-1b", "deepseek-coder-33b", "phi4-mini-3.8b",
          "deepseek-v2-lite-16b", "deepseek-moe-16b", "whisper-small",
@@ -31,6 +35,9 @@ PORTED = {"smollm-360m": "smollm_360m", "gemma3-1b": "gemma3_1b",
           "deepseek-moe-16b": "deepseek_moe_16b",
           "whisper-small": "whisper_small", "internvl2-76b": "internvl2_76b",
           "zamba2-1.2b": "zamba2_1p2b", "mamba2-2.7b": "mamba2_2p7b"}
+
+# archs for which long_500k decode is sub-quadratic-legal
+LONG_OK = ("mamba2-2.7b", "zamba2-1.2b", "gemma3-1b")
 
 
 @dataclass(frozen=True)
@@ -63,6 +70,20 @@ def get_smoke(arch: str) -> ModelConfig:
     return _module(arch).SMOKE
 
 
+def shape_skip_reason(arch: str, shape: str) -> str | None:
+    """Why the dry run skips (``arch``, ``shape``), or None."""
+    if shape == "long_500k" and arch not in LONG_OK:
+        return ("full-attention arch: 512k dense KV decode is the "
+                "quadratic-prefill regime the assignment skips")
+    return None
+
+
+def cells(include_skipped: bool = False) -> list[tuple[str, str]]:
+    """All (arch, shape) pairs, minus the documented skips."""
+    return [(a, s) for a in ARCHS for s in SHAPES
+            if include_skipped or shape_skip_reason(a, s) is None]
+
+
 def _input_shapes(cfg: ModelConfig, shape: ShapeSpec, batch_override=None):
     """Shapes and dtypes of a cell's model inputs, in the JAX package's
     order (``input_specs``): int32 tokens and labels, and the stubbed
@@ -81,6 +102,18 @@ def _input_shapes(cfg: ModelConfig, shape: ShapeSpec, batch_override=None):
             out["frames"] = ((B, cfg.encdec.n_frames, cfg.d_model), f32)
         return out
     return {"tokens": ((B, 1), i32), "cur": ((), i32)}
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec, *,
+                batch_override=None) -> dict:
+    """Meta tensors (shapes and dtypes, no data) standing in for every
+    model input of a cell: the counterpart of the JAX package's
+    ``ShapeDtypeStruct``. train/prefill: the full-sequence batch;
+    decode: the one-token batch (the cache is a state operand,
+    ``Model.abstract_cache``)."""
+    return {k: torch.empty(shp, dtype=getattr(torch, np.dtype(dt).name),
+                           device="meta")
+            for k, (shp, dt) in _input_shapes(cfg, shape, batch_override).items()}
 
 
 def concrete_batch(cfg: ModelConfig, shape: ShapeSpec, *, batch_override=None,

@@ -24,7 +24,9 @@ grid shape and kept on the device.
 The device decides the path: a CUDA tensor launches the kernel or raises,
 a CPU tensor runs the plain version (kernels/ref.flash_attention_ref).
 Each launch adds one to ``LAUNCHES["flash_attention_fwd"]`` and one to its
-design's count in ``FLASH_DESIGN_LAUNCHES`` (kernels/_build.py).
+design's count in ``FLASH_DESIGN_LAUNCHES`` (kernels/_build.py), and is
+charged to an open ``roofline.op_cost.count`` (its q, k, v and output in
+bytes, 0 flops): the launch itself goes past the dispatcher.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import torch
 
 from repro_torch.core.layout import device_constant
 from repro_torch.core.orderings import path_index_2d
+from repro_torch.roofline import op_cost
 
 from . import _build, ref
 
@@ -206,6 +209,7 @@ def _fwd_on_card(design: str, q, k, v, causal, block_q: int, block_k: int,
                   plan.data_ptr(), BH, Sq, Sk, Dp, block_q, block_k,
                   int(bool(causal)), 1.0 / math.sqrt(D))
     _build.FLASH_DESIGN_LAUNCHES[design] += 1
+    op_cost.charge_kernel("flash_attention_fwd", (q, k, v), out)
     return out if Dp == D else out[..., :D].contiguous()
 
 

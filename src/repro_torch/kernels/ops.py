@@ -255,52 +255,84 @@ class _FlashAttention(torch.autograd.Function):
 _BATCH_AXES = ("pod", "data")
 
 
-def _flash_on_mesh(q, k, v, causal, schedule, block_q, block_k):
-    """``_FlashAttention`` on each rank's part of DTensor q, k, v (the
-    kernel has no DTensor sharding rule): the batch split over the mesh's
-    batch axes and the heads over ``"model"`` wherever they divide (else
-    replicated there); the output comes back with q's placements, and the
-    gradients through ``local_map``'s backward. Where q's heads are split
-    and k's and v's are not (too few kv heads), each rank takes the kv
-    head of each of its q heads, and their gradients are partial sums
-    over ``"model"``."""
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, its gradient made contiguous: a gradient that leaves
+    ``local_map`` reaches DTensor's views of the heads (the backward of a
+    (B, S, H·hd) -> (B, S, H, hd) view), which refuse a permuted local
+    tensor."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def on_heads(fn, qs, kvs, shared=(), head_dim: int = 2):
+    """``fn(*qs, *kvs, *shared)`` on each rank's batch rows and heads of
+    DTensors (``local_map``; an attention has no DTensor sharding rule
+    that keeps its heads split). ``qs`` hold H q heads along
+    ``head_dim``, ``kvs`` KV heads there, ``shared`` (B, ...) are read by
+    every head; ``fn`` returns the heads it was given along ``head_dim``,
+    and so does this, as one DTensor placed as q is. The batch (dim 0) is
+    split over the mesh's batch axes where they divide it, the heads over
+    "model" where H divides it and each rank's q heads read whole kv
+    groups or all one kv head; the rest is replicated. Where a rank's q
+    heads read one kv head of fewer than the ranks, the kv heads come
+    whole and it takes that one, and the gradients of ``kvs`` and
+    ``shared`` are partial sums over "model"."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
-    mesh = q.device_mesh
-    B, Hq = q.shape[:2]
-    Hkv = k.shape[1]
-    q_pl, kv_pl, kv_grad = [], [], []
-    pick_kv = False
+    mesh = qs[0].device_mesh
+    B, H = qs[0].shape[0], qs[0].shape[head_dim]
+    KV = kvs[0].shape[head_dim]
+    rep = H // KV
+    q_pl, kv_pl, kv_grad, sh_pl, sh_grad = [], [], [], [], []
+    pick = False
     for i, name in enumerate(mesh.mesh_dim_names):
         n = mesh.size(i)
+        q_p = kv_p = kv_g = sh_p = sh_g = Replicate()
         if name in _BATCH_AXES and B % n == 0:
             B //= n
-            q_p = kv_p = kv_g = Shard(0)
-        elif name == "model" and Hq % n == 0:
-            q_p = Shard(1)
-            pick_kv = Hkv % n != 0
-            kv_p, kv_g = (Replicate(), Partial()) if pick_kv else (Shard(1), Shard(1))
-        else:
-            q_p = kv_p = kv_g = Replicate()
+            q_p = kv_p = kv_g = sh_p = sh_g = Shard(0)
+        elif name == "model" and H % n == 0 and (KV % n == 0 or rep % (H // n) == 0):
+            q_p, sh_g = Shard(head_dim), Partial()
+            pick = KV % n != 0
+            kv_p, kv_g = ((Replicate(), Partial()) if pick
+                          else (Shard(head_dim), Shard(head_dim)))
         q_pl.append(q_p)
         kv_pl.append(kv_p)
         kv_grad.append(kv_g)
+        sh_pl.append(sh_p)
+        sh_grad.append(sh_g)
+    nq, nkv, ns = len(qs), len(kvs), len(shared)
 
-    def local(q, k, v):
-        if pick_kv:  # global q head h reads kv head h // (Hq / Hkv)
-            hq = q.shape[1]
-            first = mesh.get_local_rank("model") * hq
-            idx = torch.div(torch.arange(first, first + hq, device=q.device),
-                            Hq // Hkv, rounding_mode="floor")
-            k, v = k.index_select(1, idx), v.index_select(1, idx)
-        return _FlashAttention.apply(q, k, v, causal, schedule, block_q, block_k)
+    def local(*ts):
+        ts = tuple(_ContiguousGrad.apply(t) for t in ts)
+        lq, lkv = ts[:nq], ts[nq:nq + nkv]
+        if pick:  # this rank's q heads all read global kv head `first // rep`
+            first = mesh.get_local_rank("model") * lq[0].shape[head_dim]
+            lkv = tuple(t.narrow(head_dim, first // rep, 1) for t in lkv)
+        return fn(*lq, *lkv, *ts[nq + nkv:])
 
     q_pl, kv_pl, kv_grad = tuple(q_pl), tuple(kv_pl), tuple(kv_grad)
+    sh_pl, sh_grad = tuple(sh_pl), tuple(sh_grad)
     return local_map(local, out_placements=(q_pl,),
-                     in_placements=(q_pl, kv_pl, kv_pl),
-                     in_grad_placements=(q_pl, kv_grad, kv_grad),
-                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+                     in_placements=(q_pl,) * nq + (kv_pl,) * nkv + (sh_pl,) * ns,
+                     in_grad_placements=(q_pl,) * nq + (kv_grad,) * nkv
+                     + (sh_grad,) * ns,
+                     device_mesh=mesh, redistribute_inputs=True)(*qs, *kvs, *shared)
+
+
+def _flash_on_mesh(q, k, v, causal, schedule, block_q, block_k):
+    """``_FlashAttention`` on each rank's part of DTensor q, k, v
+    (:func:`on_heads`, the heads at dim 1): the kernel has no DTensor
+    sharding rule."""
+    return on_heads(lambda q, k, v: _FlashAttention.apply(
+        q, k, v, causal, schedule, block_q, block_k), (q,), (k, v), head_dim=1)
 
 
 def flash_attention(q, k, v, causal: bool = True, schedule: str = "morton",

@@ -8,8 +8,10 @@ kernel — and ``masked_sdpa`` otherwise. ``masked_sdpa`` never
 materialises an (S, S) score tensor for long sequences: above 4096
 queries it walks them in chunks of 1024. Decode attends one new token to
 the preallocated cache through ``masked_sdpa``. On a device mesh
-(DTensor parameters) decode redistributes its scores to
-``cfg.score_spec``, as the JAX package pins them.
+(DTensor parameters) each rank attends its own batch rows and heads
+(``kernels.ops.on_heads``), but decode over a sequence-split cache
+redistributes its scores to ``cfg.score_spec``, as the JAX package pins
+them.
 
 The per-layer flag ``is_global`` (gemma3's local:global pattern) is a
 Python bool here: the layers run in a Python loop, not under ``scan``.
@@ -24,17 +26,18 @@ from __future__ import annotations
 import math
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.core.layout import device_constant
-from repro_torch.kernels.ops import flash_attention
+from repro_torch.kernels.ops import _BATCH_AXES, flash_attention, on_heads
 
 from .config import ModelConfig
 from .layers import _rotate, causal_window_mask, rope_freqs
 from .params import constrain, gathered
 
 __all__ = ["masked_sdpa", "gqa_attention", "gqa_decode", "mla_attention",
-           "mla_decode", "rope_with_freqs", "select_freqs"]
+           "mla_decode", "rope_with_freqs", "select_freqs", "merge_heads",
+           "split_heads"]
 
 _NEG = -1e30
 _Q_CHUNK = 1024
@@ -81,7 +84,18 @@ def masked_sdpa(q, k, v, posq, posk, *, window=None, is_global=None,
     Sq, Sk) pins the scores' sharding where they are a DTensor (decode
     over a sequence-sharded cache); the (B, KV, rep, Sq, Sk) scores take
     it with the group dims unsplit.
+
+    On DTensors without ``score_spec`` and with k and v whole along their
+    sequence, each rank attends its own batch rows and heads
+    (``kernels.ops.on_heads``); otherwise DTensor runs the products with
+    the heads whole (:func:`heads_whole`), the sequence split kept.
     """
+    if isinstance(q, DTensor):
+        if score_spec is None and not _seq_split(k, v):
+            return on_heads(lambda q, k, v: masked_sdpa(
+                q, k, v, posq, posk, window=window, is_global=is_global,
+                causal=causal, q_chunk=q_chunk), (q,), (k, v))
+        q, k, v = heads_whole(q), heads_whole(k), heads_whole(v)
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     rep = H // KV
@@ -104,6 +118,93 @@ def masked_sdpa(q, k, v, posq, posk, *, window=None, is_global=None,
         return blk(q, posq)
     return torch.cat([blk(q[:, i:i + q_chunk], posq[i:i + q_chunk])
                       for i in range(0, Sq, q_chunk)], dim=1)
+
+
+def _whole_after_seq(t):
+    """DTensor ``t`` with every dim after the first two whole: a split of
+    them replicated, a partial sum reduced, onto the batch (dim 0) where
+    the mesh dim is a batch axis that divides it, else replicated."""
+    mesh, want, ways = t.device_mesh, [], 1
+    for i, pl in enumerate(t.placements):
+        if pl.is_shard(0):
+            ways *= mesh.size(i)
+    for i, pl in enumerate(t.placements):
+        n = mesh.size(i)
+        if pl.is_partial():
+            if mesh.mesh_dim_names[i] in _BATCH_AXES and t.shape[0] % (ways * n) == 0:
+                pl, ways = Shard(0), ways * n
+            else:
+                pl = Replicate()
+        elif any(pl.is_shard(d) for d in range(2, t.ndim)):
+            pl = Replicate()
+        want.append(pl)
+    want = tuple(want)
+    return t if want == tuple(t.placements) else t.redistribute(placements=want)
+
+
+class _HeadsWhole(torch.autograd.Function):
+    """:func:`_whole_after_seq` forward, and on the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return _whole_after_seq(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _whole_after_seq(g)
+
+
+def heads_whole(t):
+    """(B, S, heads, ...) with the heads (and every dim after them) whole
+    on every rank and no partial sums, where it is a DTensor, and its
+    gradient so too; the batch and sequence splits stay. For attention
+    that DTensor runs itself (a sequence-split cache, pinned scores):
+    its products flatten the batch with the heads, which DTensor refuses
+    while a dim after the first is split (torch 2.11), in the forward and
+    in the backward, or cannot do at all where the q heads are split
+    finer than their kv groups (64 heads in 8 groups over 16 ranks). A
+    plain tensor passes through."""
+    return _HeadsWhole.apply(t) if isinstance(t, DTensor) else t
+
+
+def _seq_split(*ts) -> bool:
+    """Whether a DTensor among ``ts`` splits its dim 1 (the sequence)."""
+    return any(isinstance(t, DTensor) and any(pl.is_shard(1) for pl in t.placements)
+               for t in ts)
+
+
+def _heads_aligned(t, H: int):
+    """DTensor ``t`` (B, S, H·hd) with any split of its last dim over a
+    mesh dim that does not divide H replicated (a split DTensor cannot
+    view as whole heads)."""
+    want = tuple(Replicate() if pl.is_shard(t.ndim - 1) and H % t.device_mesh.size(i)
+                 else pl for i, pl in enumerate(t.placements))
+    return t if want == tuple(t.placements) else t.redistribute(placements=want)
+
+
+class _MergeHeads(torch.autograd.Function):
+    """(B, S, H, hd) -> (B, S, H·hd); the gradient viewed back as heads
+    after :func:`_heads_aligned`."""
+
+    @staticmethod
+    def forward(ctx, t):
+        ctx.heads = tuple(t.shape[-2:])
+        return t.reshape(*t.shape[:-2], t.shape[-2] * t.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        H, hd = ctx.heads
+        return _heads_aligned(g, H).reshape(*g.shape[:-1], H, hd)
+
+
+def merge_heads(t):
+    """(B, S, H, hd) -> (B, S, H·hd), the heads' split kept. On a DTensor
+    the gradient arrives with its columns split as the output projection
+    is, which DTensor will not view as heads where the mesh dim does not
+    divide H (whisper's 12 heads over 16): that split is gathered first."""
+    if isinstance(t, DTensor):
+        return _MergeHeads.apply(t)
+    return t.reshape(*t.shape[:-2], t.shape[-2] * t.shape[-1])
 
 
 def split_heads(t, H: int, hd: int):
@@ -145,7 +246,7 @@ def gqa_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                   is_global=None, pos: torch.Tensor | None = None,
                   causal: bool = True) -> torch.Tensor:
     """Full-sequence GQA (prefill). x: (B,S,D)."""
-    B, S, D = x.shape
+    S = x.shape[1]
     q, k, v = _proj_qkv(p, x, cfg)
     if pos is None:
         pos = torch.arange(S, device=x.device)
@@ -159,8 +260,7 @@ def gqa_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     else:
         o = masked_sdpa(q, k, v, pos, pos, window=cfg.sliding_window,
                         is_global=is_global, causal=causal)
-    o = o.reshape(B, S, cfg.n_heads * cfg.hd)
-    return o @ p["wo"].to(x.dtype)
+    return merge_heads(o) @ p["wo"].to(x.dtype)
 
 
 def gqa_decode(p: dict, x: torch.Tensor, cache: dict, cur: int,
@@ -176,7 +276,6 @@ def gqa_decode(p: dict, x: torch.Tensor, cache: dict, cur: int,
     activations for want of that cast; with f32 activations it is a
     no-op).
     """
-    B = x.shape[0]
     q, k, v = _proj_qkv(p, x, cfg)
     posq = torch.full((1,), cur, dtype=torch.int64, device=x.device)
     freqs = select_freqs(cfg, is_global, device=x.device)
@@ -188,8 +287,7 @@ def gqa_decode(p: dict, x: torch.Tensor, cache: dict, cur: int,
     posk = torch.arange(ck.shape[1], device=x.device)
     o = masked_sdpa(q, ck, cv, posq, posk, window=cfg.sliding_window,
                     is_global=is_global, score_spec=cfg.score_spec)
-    o = o.reshape(B, 1, cfg.n_heads * cfg.hd).to(x.dtype)
-    return o @ p["wo"].to(x.dtype), cache
+    return merge_heads(o).to(x.dtype) @ p["wo"].to(x.dtype), cache
 
 
 # ----------------------------------------------------------------------
@@ -214,9 +312,12 @@ def _mla_attend(p, q_nope, q_rope, c_kv, k_rope, posq, posk, cfg: ModelConfig,
     f32 from the operands cast to f32 (the JAX package's f32 accumulation),
     the probabilities rounded to v's dtype before the second product, the
     output (B, Sq, H·v_dim) in v's dtype. For Sq > 4096 (a multiple of
-    ``q_chunk``) the queries go in chunks, so live scores are O(C·Sk)."""
+    ``q_chunk``) the queries go in chunks, so live scores are O(C·Sk).
+    On DTensors each rank attends its own rows and heads
+    (``kernels.ops.on_heads``) unless decode pins the scores or the latent
+    cache is split along its sequence; then DTensor runs it, the heads
+    whole."""
     mla = cfg.mla
-    B, Sk = c_kv.shape[:2]
     Sq = q_nope.shape[1]
     H = cfg.n_heads
     nope, rope, vd = mla.qk_nope_dim, mla.qk_rope_dim, mla.v_dim
@@ -224,13 +325,32 @@ def _mla_attend(p, q_nope, q_rope, c_kv, k_rope, posq, posk, cfg: ModelConfig,
                             lambda: rope_freqs(rope, cfg.rope_theta), c_kv.device)
     q_rope = rope_with_freqs(q_rope, posq, freqs)
     k_rope = rope_with_freqs(k_rope[..., None, :], posk, freqs)[..., 0, :]
-    k_nope = split_heads(c_kv @ p["w_uk"].to(c_kv.dtype), H, nope).float()
+    k_nope = split_heads(c_kv @ p["w_uk"].to(c_kv.dtype), H, nope)
     v = split_heads(c_kv @ p["w_uv"].to(c_kv.dtype), H, vd)
-    vf, krf = v.float(), k_rope.float()
-    scale = 1.0 / math.sqrt(nope + rope)
+    pinned = Sq == 1 and cfg.score_spec is not None  # decode's score hint
+    if isinstance(q_nope, DTensor):
+        if not pinned and not _seq_split(k_nope, v, k_rope):
+            return merge_heads(on_heads(
+                lambda qn, qr, kn, v, kr: _mla_scores(qn, qr, kn, v, kr, posq,
+                                                      posk, cfg, q_chunk),
+                (q_nope, q_rope), (k_nope, v), (k_rope,)))
+        q_nope, q_rope = heads_whole(q_nope), heads_whole(q_rope)
+        k_nope, v = heads_whole(k_nope), heads_whole(v)
+    return merge_heads(_mla_scores(q_nope, q_rope, k_nope, v, k_rope, posq, posk,
+                                   cfg, q_chunk))
+
+
+def _mla_scores(q_nope, q_rope, k_nope, v, k_rope, posq, posk,
+                cfg: ModelConfig, q_chunk: int):
+    """:func:`_mla_attend`'s attention on the heads it is given: (B, Sq,
+    H', v_dim) in v's dtype."""
+    mla = cfg.mla
+    Sq = q_nope.shape[1]
+    kf, vf, krf = k_nope.float(), v.float(), k_rope.float()
+    scale = 1.0 / math.sqrt(mla.qk_nope_dim + mla.qk_rope_dim)
 
     def blk(qn, qr, pq):
-        s = (torch.einsum("bqhd,bkhd->bhqk", qn.float(), k_nope)
+        s = (torch.einsum("bqhd,bkhd->bhqk", qn.float(), kf)
              + torch.einsum("bqhd,bkd->bhqk", qr.float(), krf)) * scale
         s = torch.where(causal_window_mask(pq, posk, None), s, _NEG)
         if Sq == 1:  # decode
@@ -240,12 +360,10 @@ def _mla_attend(p, q_nope, q_rope, c_kv, k_rope, posq, posk, cfg: ModelConfig,
                             vf).to(v.dtype)
 
     if Sq <= _CHUNK_THRESHOLD or Sq % q_chunk:
-        o = blk(q_nope, q_rope, posq)
-    else:
-        o = torch.cat([blk(q_nope[:, i:i + q_chunk], q_rope[:, i:i + q_chunk],
-                           posq[i:i + q_chunk])
-                       for i in range(0, Sq, q_chunk)], dim=1)
-    return o.reshape(B, Sq, H * vd)
+        return blk(q_nope, q_rope, posq)
+    return torch.cat([blk(q_nope[:, i:i + q_chunk], q_rope[:, i:i + q_chunk],
+                          posq[i:i + q_chunk])
+                      for i in range(0, Sq, q_chunk)], dim=1)
 
 
 def mla_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,

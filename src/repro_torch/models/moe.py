@@ -130,8 +130,12 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig):
 
     def pick(logits):
         probs, gate, ids = _pick(logits, K)
-        # each expert's share of this rank's assignments (for the aux loss)
-        f = F.one_hot(ids.reshape(-1, K).long(), E).float().mean(dim=(0, 1))
+        # each expert's share of this rank's assignments (for the aux loss);
+        # the one-hot by comparison: F.one_hot takes other ops on each
+        # device (a value check on the CPU and the card, none on meta), and
+        # the dry run's count must not depend on the device
+        hot = ids.reshape(-1, K, 1).long() == torch.arange(E, device=ids.device)
+        f = hot.float().mean(dim=(0, 1))
         return probs, gate, ids, f
 
     partial = None

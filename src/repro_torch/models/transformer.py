@@ -43,6 +43,9 @@ from typing import Any
 import numpy as np
 import torch
 import torch.utils.checkpoint as tcp
+from torch.distributed.tensor import DTensor
+
+from repro_torch.kernels.ops import on_heads
 
 from . import attention as attn
 from . import moe as moe_mod
@@ -304,16 +307,25 @@ def _cross_attention(p, h, enc_kv, cfg: ModelConfig):
     scores and softmax in f32, the probabilities rounded to v's dtype, the
     output cast to h's dtype before the output projection (under f32
     activations a no-op; decode may read an f32 cache under bf16
-    activations, as ``attention.gqa_decode`` does)."""
-    B, S, _ = h.shape
+    activations, as ``attention.gqa_decode`` does). On DTensors each rank
+    attends its own rows and heads (``kernels.ops.on_heads``) unless the
+    encoder K/V are split along their frames; then DTensor runs it, the
+    heads whole."""
     H, hd = cfg.n_heads, cfg.hd
     q = attn.split_heads(h @ p["wq"].to(h.dtype), H, hd)
     k, v = enc_kv
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(hd)
-    pr = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhqk,bkhd->bqhd", pr.to(v.dtype).float(), v.float())
-    o = o.to(v.dtype).reshape(B, S, H * hd).to(h.dtype)
-    return o @ p["wo"].to(h.dtype)
+
+    def cross(q, k, v):
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(hd)
+        pr = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhqk,bkhd->bqhd", pr.to(v.dtype).float(), v.float())
+        return o.to(v.dtype)
+
+    if isinstance(q, DTensor) and not attn._seq_split(k, v):
+        o = on_heads(cross, (q,), (k, v))
+    else:
+        o = cross(*(attn.heads_whole(t) for t in (q, k, v)))
+    return attn.merge_heads(o).to(h.dtype) @ p["wo"].to(h.dtype)
 
 
 def _mamba_layer(p, x, cfg: ModelConfig):

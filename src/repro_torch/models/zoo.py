@@ -14,6 +14,13 @@ any module, which the trainer does); the serving methods run under
 (``params.Spec``); :meth:`Model.shard` places the parameters on a
 ``DeviceMesh`` by such a tree, each one a DTensor parameter from then
 on. The methods run on DTensor parameters under ``params.on_mesh``.
+
+A model built on ``device="meta"`` holds shapes and dtypes and no data:
+it can be sharded onto a mesh of torch's fake process group and run
+``loss``, ``prefill`` and ``decode`` there, which is how the dry run
+(``launch/dryrun.py``) counts a step without a card. :meth:`Model.abstract`
+and :meth:`Model.abstract_cache` are the JAX package's abstract trees:
+meta tensors in a dtype, nothing allocated.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ from repro_torch.core.device import resolve_device
 from . import transformer as tfm
 from .config import ModelConfig
 from .params import (_fill, count_params, init_params, leaf_paths, on_mesh,
-                     partition_specs, placements)
+                     partition_specs, placements, unflatten)
 
 __all__ = ["Model", "active_params"]
 
@@ -49,10 +56,15 @@ def active_params(cfg: ModelConfig) -> int:
     return total - inactive
 
 
+def _abstract(defs, dtype) -> dict:
+    return unflatten({path: torch.empty(d.shape, dtype=dtype, device="meta")
+                      for path, d in leaf_paths(defs)})
+
+
 class Model(nn.Module):
     """``cfg``'s parameters in ``cfg.param_dtype`` (zeros until
     :meth:`init` or a copy) on ``device`` — the card unless the caller asks
-    for the CPU."""
+    for the CPU or for ``"meta"`` (no data)."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
@@ -95,6 +107,11 @@ class Model(nn.Module):
                 node = node[k]
             _fill(node, d, generator)
         return self
+
+    def abstract(self, dtype=torch.float32) -> dict:
+        """The parameter tree as meta tensors in ``dtype`` (shapes and
+        dtypes only, nothing allocated)."""
+        return _abstract(self.defs(), dtype)
 
     def specs(self, extra_rules=None) -> dict:
         """The parameters' partition specs (``params.LOGICAL_RULES``)."""
@@ -153,6 +170,12 @@ class Model(nn.Module):
     # ---- serving
     def cache_defs(self, batch: int, max_len: int):
         return tfm.cache_defs(self.cfg, batch, max_len)
+
+    def abstract_cache(self, batch: int, max_len: int,
+                       dtype=torch.bfloat16) -> dict:
+        """The decode cache of ``max_len`` positions as meta tensors in
+        ``dtype``."""
+        return _abstract(self.cache_defs(batch, max_len), dtype)
 
     def cache_specs(self, batch: int, max_len: int, extra_rules=None) -> dict:
         """The decode cache's partition specs (``extra_rules`` names the

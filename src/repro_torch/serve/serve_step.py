@@ -34,6 +34,20 @@ def gumbel_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
     return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
 
 
+def _vocab_whole(lg):
+    """(B, V) logits with the vocab whole on every rank where they are a
+    DTensor (a split or partial vocab replicated, a split batch kept):
+    DTensor's argmax over a vocab split on two mesh dims breaks. A plain
+    tensor passes through."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(lg, DTensor):
+        return lg
+    want = tuple(Replicate() if pl.is_partial() or pl.is_shard(lg.ndim - 1) else pl
+                 for pl in lg.placements)
+    return lg if want == tuple(lg.placements) else lg.redistribute(placements=want)
+
+
 def make_serve_step(model: Model, *, sample: bool = False,
                     temperature: float = 1.0,
                     generator: torch.Generator | None = None):
@@ -46,7 +60,7 @@ def make_serve_step(model: Model, *, sample: bool = False,
 
     def serve_step(cache, batch):
         logits, cache = model.decode(cache, batch)
-        lg = logits[:, -1]
+        lg = _vocab_whole(logits[:, -1])
         if sample:
             g = batch.get("gumbel")
             if g is None:

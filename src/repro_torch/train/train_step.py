@@ -47,9 +47,10 @@ class TrainConfig:
 def shard_batch(batch: dict, mesh) -> dict:
     """Each tensor of ``batch`` (the same on every rank) as a DTensor split
     along dim 0 over ``mesh``'s batch axes where they divide it, else
-    replicated."""
+    replicated; a DTensor stays as it is placed."""
     specs = sanitize_specs(mesh, _batch_specs(batch, batch_axes(mesh)), batch)
-    return {k: distribute_tensor(x, mesh, placements(specs[k], mesh))
+    return {k: x if isinstance(x, DTensor)
+            else distribute_tensor(x, mesh, placements(specs[k], mesh))
             for k, x in batch.items()}
 
 

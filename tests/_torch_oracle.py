@@ -15,6 +15,9 @@ recipe runs the JAX package's mesh pipelines on 8 host devices: its
 child sets ``XLA_FLAGS=--xla_force_host_platform_device_count=8`` before
 it imports JAX.
 
+``python tests/_torch_oracle.py dryrun_table <dir>`` prints the dry run's
+mini cells, the torch package's counts beside the JAX package's.
+
 ``python tests/_torch_oracle.py ranks <px>x<py>x<pz> <out.npz> [cpu|cuda]``
 runs the torch package's process-group mesh instead: it starts one
 process per shard, each a gloo rank on the CPU or an NCCL rank on card
@@ -78,6 +81,103 @@ def recipe_arrays(work: Path, recipe: str) -> dict[str, np.ndarray]:
         raise RuntimeError(f"reference recipe {recipe!r} failed:\n{proc.stderr}")
     with np.load(out) as z:
         return {k: z[k] for k in z.files}
+
+
+def _started(args: list[str], out: Path, err: Path, load):
+    """Start ``python tests/_torch_oracle.py *args`` and return a function
+    that waits for it (at most 600 s from the start) and returns
+    ``load(out)``: the test goes on meanwhile."""
+    import time
+
+    with open(err, "w") as f:
+        proc = subprocess.Popen([sys.executable, __file__, *args], env=_child_env(),
+                                stdout=subprocess.DEVNULL, stderr=f, text=True)
+    t0 = time.monotonic()
+
+    def wait():
+        try:
+            proc.wait(timeout=max(600 - (time.monotonic() - t0), 1))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        if proc.returncode != 0:
+            raise RuntimeError(f"{args[0]!r} failed:\n{err.read_text()}")
+        return load(out)
+
+    return wait
+
+
+def _load_npz(path) -> dict[str, np.ndarray]:
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def recipe_started(work: Path, recipe: str):
+    """Start ``recipe`` in a child process with ``work`` as its directory;
+    return a function that waits for it and returns its arrays by name."""
+    return _started([recipe, str(Path(work) / "ref.npz")], Path(work) / "ref.npz",
+                    Path(work) / "stderr.txt", _load_npz)
+
+
+def port_dryrun_started(work: Path, archs):
+    """Start the torch package's dry run of the mini cells of ``archs``
+    (:func:`_port_dryrun`) in a child process; return a function that waits
+    for it and returns ``{(arch, mode): record}``."""
+    out = Path(work) / "port.json"
+
+    def load(path):
+        return {tuple(k.split("|")): v for k, v in json.loads(path.read_text()).items()}
+
+    return _started(["port_dryrun", str(out), *archs], out,
+                    Path(work) / "stderr.txt", load)
+
+
+def _dryrun_table(work: Path) -> None:
+    """Print the mini cells' per-device counts, the port's beside the JAX
+    package's HLO counts, as a markdown table (the recipe and the port's
+    cells run in children, ``work`` their directory)."""
+    for sub in ("jax", "port"):
+        (work / sub).mkdir(parents=True, exist_ok=True)
+    ref = recipe_started(work / "jax", "dryrun")
+    port = port_dryrun_started(work / "port", DRYRUN_ARCHS)
+    want, got = ref(), port()
+    print("| arch | cell | flops, port / JAX | bytes, port / JAX | collective "
+          "bytes, port / JAX | argument bytes (both) |")
+    print("| --- | --- | --- | --- | --- | --- |")
+    for arch in DRYRUN_ARCHS:
+        for mode in ("train", "decode"):
+            rec, pre = got[(arch, mode)], f"{arch}/{mode}/"
+            coll = sum(rec["coll_bytes"].values())
+            jcoll = sum(json.loads(str(want[pre + "coll_bytes"])).values())
+            print(f"| {arch} | {mode} | {rec['flops_per_dev']:.4g} / "
+                  f"{float(want[pre + 'flops']):.4g} | {rec['bytes_per_dev']:.4g} / "
+                  f"{float(want[pre + 'bytes']):.4g} | {coll:.4g} / {jcoll:.4g} | "
+                  f"{int(want[pre + 'argument_bytes'])} |")
+
+
+def _port_dryrun(out: str, archs) -> None:
+    """The torch package's dry run of the mini cells (:data:`DRYRUN_MESH`
+    under torch's fake process group, meta tensors): each arch's train and
+    decode records, as JSON."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.configs.registry import ShapeSpec, get_smoke
+    from repro_torch.launch import dryrun
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
+    mesh = DeviceMesh("cpu", torch.arange(8).reshape(DRYRUN_MESH),
+                      mesh_dim_names=("data", "model"))
+    res = {}
+    for arch in archs:
+        for mode in ("train", "decode"):
+            shape = ShapeSpec(f"mini_{mode}", DRYRUN_SEQ, DRYRUN_BATCH, mode)
+            res[f"{arch}|{mode}"] = dryrun.run_cell(get_smoke(arch), shape, mesh,
+                                                    "mini", dryrun.DEFAULT_OPTS)
+    dist.destroy_process_group()
+    Path(out).write_text(json.dumps(res))
 
 
 # ------------------------------------------------------- stencil cases
@@ -1472,6 +1572,98 @@ def _recipe_sharding() -> dict[str, np.ndarray]:
     return res
 
 
+# the dry run's mini cells (tests/test_dryrun_mini.py's): SMOKE configs on
+# a (2, 4) ("data", "model") mesh, a train cell and a decode cell of S=64,
+# B=8 each
+DRYRUN_ARCHS = ("smollm-360m", "gemma3-1b", "deepseek-moe-16b", "mamba2-2.7b",
+                "zamba2-1.2b")
+DRYRUN_MESH = (2, 4)
+DRYRUN_SEQ, DRYRUN_BATCH = 64, 8
+
+
+def _recipe_dryrun() -> dict[str, np.ndarray]:
+    """The JAX package's dry run of the mini cells, as its ``run_cell``
+    builds them (act_seq_shard, ep_axis, score_shard, donation): per arch
+    and cell ``n_params``, ``n_active``, ``model_flops_global`` and the
+    compiled module's ``memory_analysis`` argument bytes, and the HLO
+    counts of ``roofline.analysis.analyze`` (flops, bytes and collective
+    bytes per device). The mesh is the first 8 of the 512 host devices
+    (``repro.launch.dryrun`` sets 512 at import) with Auto axes:
+    ``jax.make_mesh`` gives Explicit ones in JAX 0.9, on which the
+    models' ``with_sharding_constraint`` raises."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+    from repro.configs import get_smoke
+    from repro.configs.registry import ShapeSpec, input_specs
+    from repro.launch.dryrun import _batch_specs, _ns, sanitize_specs
+    from repro.models import build_model
+    from repro.roofline.analysis import analyze
+    from repro.serve import make_serve_step
+    from repro.train import TrainConfig, make_train_step
+
+    mesh = Mesh(np.array(jax.devices()[:8]).reshape(DRYRUN_MESH), ("data", "model"))
+    baxes = ("data",)
+    B, S = DRYRUN_BATCH, DRYRUN_SEQ
+    res = {}
+
+    def put(arch, cell, model, compiled, model_flops, n_dev=8):
+        rc = analyze(arch, cell, "mini", n_dev, compiled, model_flops)
+        pre = f"{arch}/{cell}/"
+        res[pre + "n_params"] = np.asarray(model.n_params())
+        res[pre + "n_active"] = np.asarray(model.n_active_params())
+        res[pre + "model_flops_global"] = np.asarray(model_flops)
+        res[pre + "argument_bytes"] = np.asarray(
+            compiled.memory_analysis().argument_size_in_bytes)
+        res[pre + "flops"] = np.asarray(rc.flops)
+        res[pre + "bytes"] = np.asarray(rc.bytes_accessed)
+        res[pre + "coll_bytes"] = np.asarray(json.dumps(rc.coll_bytes))
+
+    for arch in DRYRUN_ARCHS:
+        base = get_smoke(arch)
+        if base.family == "moe":
+            base = dataclasses.replace(base, ep_axis="model")
+        # train: f32 params, m and v on the params' specs
+        cfg = dataclasses.replace(base, act_spec=(baxes, "model", None))
+        model = build_model(cfg)
+        pa = model.abstract(jnp.float32)
+        ps = sanitize_specs(mesh, model.specs(), pa)
+        oa = {"m": pa, "v": pa, "step": jax.ShapeDtypeStruct((), jnp.int32)}
+        os_ = {"m": ps, "v": ps, "step": P()}
+        ba = input_specs(cfg, ShapeSpec("mini_train", S, B, "train"))
+        bs = _batch_specs(ba, baxes)
+        scalars = jax.tree.map(lambda _: P(), {"loss": 0, "grad_norm": 0, "lr": 0})
+        j = jax.jit(make_train_step(model, TrainConfig()),
+                    in_shardings=(_ns(mesh, ps), _ns(mesh, os_), _ns(mesh, bs)),
+                    out_shardings=(_ns(mesh, ps), _ns(mesh, os_), _ns(mesh, scalars)),
+                    donate_argnums=(0, 1))
+        with mesh:
+            c = j.lower(pa, oa, ba).compile()
+        put(arch, "train", model, c, 6.0 * model.n_active_params() * B * S)
+        # decode: bf16 params and cache, the cache's sequence over "model"
+        cfg = dataclasses.replace(base, score_spec=(baxes, None, None, "model"))
+        model = build_model(cfg)
+        pa = model.abstract(jnp.bfloat16)
+        ps = sanitize_specs(mesh, model.specs(), pa)
+        ca = model.abstract_cache(B, S, jnp.bfloat16)
+        cs = sanitize_specs(mesh, model.cache_specs(
+            B, S, extra_rules={"batch": baxes, "seq": "model", "kv_heads": None,
+                               "heads": None}), ca)
+        da = input_specs(cfg, ShapeSpec("mini_decode", S, B, "decode"))
+        j = jax.jit(make_serve_step(model),
+                    in_shardings=(_ns(mesh, ps), _ns(mesh, cs),
+                                  _ns(mesh, _batch_specs(da, baxes))),
+                    out_shardings=(NamedSharding(mesh, P(baxes)), _ns(mesh, cs)),
+                    donate_argnums=(1,))
+        with mesh:
+            c = j.lower(pa, ca, da).compile()
+        put(arch, "decode", model, c, 2.0 * model.n_active_params() * B)
+    return res
+
+
 def _recipe_elastic() -> dict[str, np.ndarray]:
     """The JAX package's elastic training run on 8 host devices: 3 steps
     on a (4, 2) mesh, a checkpoint, a restore onto (2, 2), 3 more steps,
@@ -1635,7 +1827,7 @@ RECIPES = {"core": _recipe_core, "gol3d": _recipe_gol3d, "pack": _recipe_pack,
            "train": _recipe_train, "lm_archs": _recipe_lm_archs,
            "lm_moe": _recipe_lm_moe, "lm_ssm": _recipe_lm_ssm,
            "lm_encdec": _recipe_lm_encdec, "sharding": _recipe_sharding,
-           "elastic": _recipe_elastic}
+           "elastic": _recipe_elastic, "dryrun": _recipe_dryrun}
 
 
 if __name__ == "__main__":
@@ -1647,13 +1839,19 @@ if __name__ == "__main__":
         _rank_main(int(rank), tuple(int(p) for p in mesh.split("x")),
                    init_file, out, device)
         sys.exit(0)
+    if sys.argv[1] == "port_dryrun":
+        _port_dryrun(sys.argv[2], sys.argv[3:])
+        sys.exit(0)
+    if sys.argv[1] == "dryrun_table":
+        _dryrun_table(Path(sys.argv[2]))
+        sys.exit(0)
     if sys.argv[1] == "shard_rank":
         case, rank, n, init_file, src, out = sys.argv[2:8]
         _shard_rank_main(case, int(rank), int(n), init_file, src, out)
         sys.exit(0)
     if sys.argv[1] in ("distributed", "elastic"):
         os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
-    if sys.argv[1] == "sharding":
+    if sys.argv[1] in ("sharding", "dryrun"):
         os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=512"
     import jax
     import jax._src.core

@@ -15,7 +15,7 @@ from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.checkpoint import ckpt
-from repro_torch.configs import deepseek_moe_16b, smollm_360m
+from repro_torch.configs import deepseek_moe_16b, deepseek_v2_lite_16b, smollm_360m
 from repro_torch.data import TokenPipeline
 from repro_torch.interop import lm_params_from_numpy
 from repro_torch.kernels import ops
@@ -24,6 +24,7 @@ from repro_torch.launch.elastic import (ELASTIC_OPT, ELASTIC_PIPE,
                                        elastic_config, reshard_run)
 from repro_torch.launch.mesh import batch_axes
 from repro_torch.models import Model
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.params import (leaf_paths, leaves, on_mesh, placements,
                                        unflatten)
@@ -218,7 +219,52 @@ def hints(rank: int, inputs: dict, work) -> dict:
     res["gqa/flash_on_mesh_calls"] = np.asarray(len(calls))
     res["gqa/q_heads_split_kv_whole"] = np.bool_(bool(calls) and all(
         q[1].is_shard(1) and k[1].is_replicate() for q, k in calls))
+    _heads_cases(res, m, gen)
     return res
+
+
+def _heads_cases(res: dict, m, gen) -> None:
+    """Attention without the flash kernel on the mesh, each rank on its own
+    heads: 4 q heads over "model" with their 2 kv heads split too ("kv2"),
+    with their one kv head taken whole ("kv1"), and MLA's 4 heads
+    (deepseek-v2-lite SMOKE, "mla"); loss and gradients beside the
+    unsharded model's, and the placements of each attention's output."""
+    base = elastic_config()
+    mla = dataclasses.replace(deepseek_v2_lite_16b.SMOKE,
+                              activation_dtype="float32")
+    real = ops.on_heads
+    for case, cfg in (("kv2", base), ("kv1", dataclasses.replace(base, n_kv_heads=1)),
+                      ("mla", mla)):
+        tokens = torch.randint(0, cfg.vocab, (GQA_B, GQA_S + 1), generator=gen(5))
+        batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+        outs = []
+
+        def seen(*a, **kw):
+            o = real(*a, **kw)
+            outs.append(tuple(o.placements))
+            return o
+
+        for name in ("plain", "mesh"):
+            model = Model(cfg, device="cpu").init(gen(6)).requires_grad_()
+            b = batch
+            if name == "mesh":
+                sharded(model, m)
+                b = {k: distribute_tensor(t, m, placements(("data",), m))
+                     for k, t in batch.items()}
+            attn_mod.on_heads = seen
+            try:
+                loss, _ = model.loss(b)
+                names, ps = zip(*leaf_paths(model.params()))
+                with on_mesh(model.params()):
+                    grads = torch.autograd.grad(loss, ps)
+            finally:
+                attn_mod.on_heads = real
+            res[f"heads/{case}/{name}/loss"] = whole(loss).detach().numpy()
+            for path, g in zip(names, grads):
+                res[f"heads/{case}/{name}/grads/" + "/".join(path)] = whole(g).numpy()
+        res[f"heads/{case}/calls"] = np.asarray(len(outs))
+        res[f"heads/{case}/heads_split"] = np.bool_(bool(outs) and all(
+            o[0].is_shard(0) and o[1].is_shard(2) for o in outs))
 
 
 def elastic(rank: int, inputs: dict, work) -> dict:

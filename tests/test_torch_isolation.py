@@ -91,6 +91,36 @@ assert not bad, bad
     assert proc.returncode == 0, proc.stderr[-3000:]
 
 
+def test_dry_run_pulls_in_no_jax():
+    """The roofline package and the dry run, one mini cell on meta under a
+    fake process group: no JAX, JAX package, ml_dtypes or benchmarks
+    module comes in; the entry points still default to the card."""
+    code = """
+import inspect, sys, torch, torch.distributed as dist
+import repro_torch.roofline, repro_torch.roofline.op_cost
+from repro_torch.launch import dryrun
+from repro_torch.configs.registry import ShapeSpec, concrete_batch, get_smoke
+from repro_torch.models import Model
+from torch.distributed.device_mesh import DeviceMesh
+from torch.testing._internal.distributed.fake_pg import FakeStore
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
+mesh = DeviceMesh("cpu", torch.arange(8).reshape(2, 4), mesh_dim_names=("data", "model"))
+rec = dryrun.run_cell(get_smoke("deepseek-moe-16b"), ShapeSpec("t", 32, 8, "train"),
+                      mesh, "mini", dryrun.DEFAULT_OPTS)
+assert rec["flops_per_dev"] > 0 and rec["device"] == "meta"
+dist.destroy_process_group()
+assert inspect.signature(Model).parameters["device"].default == "cuda"
+assert inspect.signature(concrete_batch).parameters["device"].default == "cuda"
+bad = [m for m in sys.modules if m in ('jax', 'repro', 'ml_dtypes', 'benchmarks')
+       or m.startswith(('jax.', 'repro.', 'ml_dtypes.', 'benchmarks.'))]
+assert not bad, bad
+"""
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120,
+                          env={**os.environ, "PYTHONPATH": str(REPO / "src")})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+
+
 def test_sources_name_no_jax_import():
     pat = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.]|import\s+repro(\s|\.|$)"
                      r"|from\s+repro(\s|\.)|import\s+ml_dtypes|from\s+ml_dtypes"
@@ -109,7 +139,8 @@ def test_sources_name_no_jax_import():
             "deepseek_coder_33b.py", "phi4_mini_3p8b.py",
             "deepseek_v2_lite_16b.py", "deepseek_moe_16b.py", "mamba2.py",
             "mamba2_2p7b.py", "zamba2_1p2b.py", "whisper_small.py",
-            "internvl2_76b.py", "mesh.py", "dryrun.py"} <= names
+            "internvl2_76b.py", "mesh.py", "dryrun.py", "op_cost.py",
+            "analysis.py"} <= names
     assert len(files) > 10
     for f in files:
         assert not pat.search(f.read_text()), f

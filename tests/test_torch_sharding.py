@@ -280,6 +280,28 @@ def test_flash_with_q_heads_split_and_kv_whole(hints):
                                    atol=F32_TOL * np.abs(want).max(), err_msg=k)
 
 
+@pytest.mark.parametrize("case", ["kv2", "kv1", "mla"])
+def test_attention_keeps_heads_split_on_the_mesh(hints, case):
+    """Attention without the flash kernel on (2, 2): each rank attends its
+    own batch rows and its own 2 of the 4 heads (the output split over
+    "data" and, along its heads, over "model"), where the kv heads split
+    with them, where the one kv head is taken whole, and in MLA; loss and
+    gradients those of the unsharded model."""
+    assert hints[f"heads/{case}/calls/rank0"] > 0
+    assert all(hints[f"heads/{case}/heads_split/rank{r}"] for r in range(4))
+    np.testing.assert_allclose(hints[f"heads/{case}/mesh/loss/rank0"],
+                               hints[f"heads/{case}/plain/loss/rank0"],
+                               rtol=F32_TOL)
+    pre = f"heads/{case}/plain/grads/"
+    keys = [k for k in hints if k.startswith(pre) and k.endswith("rank0")]
+    assert keys
+    for k in keys:
+        want = hints[k]
+        got = hints[k.replace("/plain/", "/mesh/")]
+        np.testing.assert_allclose(got, want, rtol=1e-4,
+                                   atol=F32_TOL * np.abs(want).max(), err_msg=k)
+
+
 def test_tuple_axis_splits_pod_major(hints):
     """Spec(("pod", "data")) over a (2, 2) ("pod", "data") mesh: rank (p, d)
     holds row block 2p + d, JAX's order."""
