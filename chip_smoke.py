@@ -11,7 +11,9 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    the compiler's register/spill report per kernel instance), and the
    SASS of the Hopper flash design (``cuobjdump -sass`` from nvcc's own
    ``bin/``) must hold ``HGMMA`` (wgmma on the tensor cores) and
-   ``UTMALDG`` (TMA loads); that of the Hopper stencil design must hold
+   ``UTMALDG`` (TMA loads), and that of its backward
+   (``libflash_attn_bwd_sm90.so``) ``HGMMA``, ``UTMALDG`` and ``UBLKCP``
+   (its lse and Δ by 1-D bulk copies); that of the Hopper stencil design must hold
    its 44 kernels and no ``FFMA`` (no contracted multiply-add), that of
    the Hopper repack design its 12 kernels, no ``FFMA`` and ``UBLKCP``
    (its 1-D bulk copies);
@@ -180,30 +182,42 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    ``smollm-360m`` (32 layers, bf16 activations, f32 master weights,
    ``use_flash_kernel``, ``remat=True``) at B=4, S=4096: 64
    ``flash_attention_fwd`` launches a step, every one of the Hopper design
-   (32 forward, 32 in the remat recompute; counted as a main path); the
-   same step with the kernel's plain version in its place (loss within
-   2e-4 relative, gradient norm within 1e-3), and again from the same
-   state (bit-equal or not, reported); ``microbatches=2`` (loss within
-   2e-4);
-   4 layers in f32 activations at B=1, S=2048 on the simple design (loss
-   within 1e-5 relative, every gradient leaf within a relative L2 error of
-   1e-4 of the plain version's); a SMOKE ``Trainer`` of 4 steps killed
+   (32 forward, 32 in the remat recompute), and 32 ``flash_attention_bwd``
+   launches, every one of the Hopper backward (counted as a main path), and
+   no call of ``kernels.ref``'s attention functions (``REF_ATTENTION``) in
+   that step; the same step with both kernels' plain versions in their
+   place (loss within 2e-4 relative, gradient norm within 1e-3), and again
+   from the same state (bit-equal or not, reported); ``microbatches=2``
+   (loss within 2e-4);
+   4 layers in f32 activations at B=1, S=2048 on the simple designs (8
+   forward and 4 backward launches; loss within 1e-5 relative, every
+   gradient leaf within a relative L2 error of 1e-4 of the plain
+   versions'); a SMOKE ``Trainer`` of 4 steps killed
    after its checkpoint at step 2 and resumed, bit-equal to the unbroken
    run under ``torch.use_deterministic_algorithms(True)``, in a temporary
    directory removed at the end; ``python -m repro_torch.launch.train
    --smoke`` as a subprocess; then ms per step and tokens/s (median of 3
    after a warm-up), peak memory, and one profiled step: device busy,
-   flash forward's, the recompute backward's, the GEMMs' shares and
-   AdamW's time; last the kernel alone at the step's shape (BH=60,
-   S=4096, D=64) held against its plain version (one bf16 unit in the
-   last place plus 1e-5) and timed beside it and SDPA. Its readings go into the kernels line under
-   ``flash_attention_fwd.training``. Then the same step over a torch
+   flash forward's, flash backward's, the GEMMs' shares and AdamW's time;
+   then the kernel alone at the step's shape (BH=60, S=4096, D=64) held
+   against its plain version (one bf16 unit in the last place plus 1e-5)
+   and timed beside it and SDPA. Its readings go into the kernels line
+   under ``flash_attention_fwd.training``. Last ``flash_attention_bwd``
+   alone (``bwd_checks``) from the forward kernel's o and lse: the Hopper
+   backward at the step's shape and at BH=96, S=2048, D=128, dq, dk and dv
+   each within a relative L2 error of 1e-2 of the plain version; the
+   simple backward in f32 and f16 at D=64, bf16 at D=256, float8_e4m3fn at
+   D=64 and f32 at D=1152 (S=256, its f32 workspace), f32 within 1e-5 and
+   the others within one unit of their type; each timed beside its plain
+   version, ``aten._scaled_dot_product_flash_attention_backward`` (bf16 and
+   f16; a yardstick the port never calls) and its bound; the
+   ``flash_attention_bwd`` row of the kernels line. Then the same step over a torch
    device mesh (``mesh_phase``): a one-rank nccl ``DeviceMesh`` (1, 1)
    ("data", "model"), every parameter and AdamW leaf a DTensor placed by
    ``partition_specs`` -> ``sanitize_specs``, the residual pinned by
    ``act_spec``; three steps against the unsharded step (the same bf16
-   gates; bit-equal reported), 64 ``sm90`` launches a step (counted as a
-   main path), the sharded tree (params, m, v) checkpointed and restored
+   gates; bit-equal reported), 64 ``sm90`` forward and 32 ``sm90``
+   backward launches a step (counted as a main path), the sharded tree (params, m, v) checkpointed and restored
    with ``shardings=`` bit for bit, then ms per step, peak memory and one
    profiled step's busy share beside the unsharded step's; its readings go
    under ``flash_attention_fwd.mesh``. With that mesh up, the dry run
@@ -275,6 +289,7 @@ repository beside it, it exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -300,12 +315,15 @@ SOURCES = {"stencil_step_fused": "src/repro_torch/kernels/csrc/stencil3d_sm90.cu
            "stencil_sum_resident": "src/repro_torch/kernels/csrc/stencil3d_sm90.cu",
            "stencil_sum_blocks": "src/repro_torch/kernels/csrc/stencil3d_blocks_sm90.cu",
            "gather_rows": "src/repro_torch/kernels/csrc/sfc_gather.cu",
-           "flash_attention_fwd": "src/repro_torch/kernels/csrc/flash_attn_sm90.cu"}
+           "flash_attention_fwd": "src/repro_torch/kernels/csrc/flash_attn_sm90.cu",
+           "flash_attention_bwd": "src/repro_torch/kernels/csrc/flash_attn_bwd_sm90.cu"}
 REPLACES = {"stencil_step_fused": "src/repro/kernels/stencil3d.py:296",
             "stencil_sum_resident": "src/repro/kernels/stencil3d.py:212",
             "stencil_sum_blocks": "src/repro/kernels/stencil3d.py:114",
             "gather_rows": "src/repro/kernels/sfc_gather.py:33",
-            "flash_attention_fwd": "src/repro/kernels/flash_attn.py:106"}
+            "flash_attention_fwd": "src/repro/kernels/flash_attn.py:106",
+            # no Pallas backward: the custom_vjp backward that recomputes
+            "flash_attention_bwd": "src/repro/kernels/ops.py:215"}
 BCS = ("periodic", "dirichlet", "neumann0", "mixed")
 # csrc/stencil3d_sm90.cu: 12 (T, g, S) for gol, jacobi and identity, 8 for wave
 SM90_STENCIL_KERNELS = 44
@@ -350,6 +368,21 @@ LM_F32_LOGIT_TOL = 1e-4
 # differs: the loss to 1e-5 relative and every gradient leaf to a
 # relative L2 error of 1e-4
 TRAIN_BF16_LOSS_RTOL, TRAIN_BF16_GNORM_RTOL = 2e-4, 1e-3
+# flash_attention_bwd against its plain version on the same inputs (the
+# forward kernel's o and lse): the Hopper design rounds P and dS to bf16
+# once each (2^-9 of a term at most), so dq, dk and dv are each held to a
+# relative L2 error of 1e-2; the simple design computes in f32 as the plain
+# version does, summed in another order, and rounds once: f32 within 1e-5
+# relative L2, the narrower types within one unit of their type (finfo.eps)
+BWD_SM90_REL_L2, BWD_F32_REL_L2 = 1e-2, 1e-5
+# the Hopper backward alone: the training step's folded shape (BH, S, D)
+# and phi4-mini-3.8b's and deepseek-coder-33b's head dim
+BWD_SM90_SHAPES = ((60, 4096, 64), (96, 2048, 128))
+# the simple backward alone: (dtype, BH, S, D); the first is the f32
+# training check's shape, whose kernel it times
+BWD_SIMPLE_CASES = (("float32", 15, 2048, 64), ("float16", 15, 2048, 64),
+                    ("bfloat16", 16, 2048, 256), ("float8_e4m3fn", 15, 2048, 64),
+                    ("float32", 4, 256, 1152))
 MESH_STEPS = 3  # the mesh phase's checked (and then timed) steps
 TRAIN_F32_LOSS_RTOL, TRAIN_F32_GRAD_RTOL = 1e-5, 1e-4
 # the names of GEMM kernels in a profiler trace (cuBLAS, CUTLASS)
@@ -392,13 +425,66 @@ def kernel_name(line: str) -> str | None:
     return None
 
 
-def plain_fwd(q, k, v, *, causal, block_q, block_k, schedule):
+def plain_fwd(q, k, v, *, causal, block_q, block_k, schedule, return_lse=False):
     """``flash_attention_fwd``'s plain version with the wrapper's signature,
     to swap into ``kops.flash_attention_fwd`` (the blocks and schedule
     change nothing in it)."""
     from repro_torch.kernels import ref
 
-    return ref.flash_attention_ref(q, k, v, causal=causal)
+    o = ref.flash_attention_ref(q, k, v, causal=causal)
+    return (o, ref.flash_attention_lse_ref(q, k, causal=causal)) if return_lse else o
+
+
+def plain_bwd(q, k, v, o, lse, do, *, causal, block_q, block_k):
+    """``flash_attention_bwd``'s plain version with the wrapper's signature,
+    to swap into ``kops.flash_attention_bwd``."""
+    from repro_torch.kernels import ref
+
+    return ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+
+
+# the plain attention functions that the kernel steps must not call
+REF_ATTENTION = ("attention_ref", "flash_attention_ref", "flash_attention_lse_ref",
+                 "flash_attention_bwd_ref")
+
+
+@contextlib.contextmanager
+def ref_calls():
+    """Within it, the calls of ``kernels.ref``'s attention functions
+    (``REF_ATTENTION``) are counted in the dict it yields: each is wrapped
+    in place, and restored on exit."""
+    from repro_torch.kernels import ref
+
+    calls = {n: 0 for n in REF_ATTENTION}
+    real = {n: getattr(ref, n) for n in REF_ATTENTION}
+
+    def counted(name):
+        def fn(*a, **kw):
+            calls[name] += 1
+            return real[name](*a, **kw)
+        return fn
+
+    for n in REF_ATTENTION:
+        setattr(ref, n, counted(n))
+    try:
+        yield calls
+    finally:
+        for n, fn in real.items():
+            setattr(ref, n, fn)
+
+
+@contextlib.contextmanager
+def swapped(fwd, bwd):
+    """Within it, ``kops.flash_attention_fwd`` and
+    ``kops.flash_attention_bwd`` are ``fwd`` and ``bwd``."""
+    from repro_torch.kernels import ops as kops
+
+    real = kops.flash_attention_fwd, kops.flash_attention_bwd
+    kops.flash_attention_fwd, kops.flash_attention_bwd = fwd, bwd
+    try:
+        yield
+    finally:
+        kops.flash_attention_fwd, kops.flash_attention_bwd = real
 
 
 def events_ms(fn, reps=5, inner=5) -> float:
@@ -442,14 +528,17 @@ def train_phase(dev, flash_err) -> dict:
     ``use_flash_kernel``, ``remat=True``) at ``CHIP_TRAIN_*``, weights from
     a seeded ``torch.Generator`` and ``TokenPipeline`` batches. Checks the
     launches (64 ``sm90`` flash launches a step: the forward and the remat
-    recompute), the kernel against its plain version swapped into
-    ``kops.flash_attention_fwd`` (full depth in bf16; 4 layers in f32 on the
-    simple design), ``microbatches=2``, a ``Trainer`` killed and resumed at
-    SMOKE size (bit-equal under ``torch.use_deterministic_algorithms``) and
-    the CLI; then times steps and profiles one, and holds the kernel alone
-    at the step's shape against its plain version with ``flash_err``.
-    Returns the readings for the ``flash_attention_fwd`` row
-    (``launches``: the counted step's)."""
+    recompute; 32 ``sm90`` backward launches) and that no plain attention
+    runs in the step, the kernels against their plain versions swapped into
+    ``kops.flash_attention_fwd`` and ``_bwd`` (full depth in bf16; 4 layers
+    in f32 on the simple designs), ``microbatches=2``, a ``Trainer`` killed
+    and resumed at SMOKE size (bit-equal under
+    ``torch.use_deterministic_algorithms``) and the CLI; then times steps
+    and profiles one, holds the forward kernel alone at the step's shape
+    against its plain version with ``flash_err``, and runs
+    :func:`bwd_checks`. Returns the readings for the ``flash_attention_fwd``
+    row (``launches``: the counted step's) and for the
+    ``flash_attention_bwd`` row (``bwd``, ``bwd_launches``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -480,39 +569,46 @@ def train_phase(dev, flash_err) -> dict:
 
     pipe = TokenPipeline(vocab=cfg.vocab, batch=B, seq=S, seed=0)
     batch = batch_of(pipe, 0)
-    kernel_fwd = kops.flash_attention_fwd
+    kernels = kops.flash_attention_fwd, kops.flash_attention_bwd
 
-    def fresh_step(microbatches=1, fwd=kernel_fwd):
+    def fresh_step(microbatches=1, fns=kernels):
         """One step from the seeded weights and a zero optimizer state,
-        with ``fwd`` in ``kops.flash_attention_fwd``: its metrics."""
+        with ``fns`` in ``kops.flash_attention_fwd`` and ``_bwd``: its
+        metrics."""
         with torch.no_grad():
             for p, w in zip(leaves(params), init):
                 p.copy_(w)
         step = make_train_step(model, TrainConfig(opt=opt,
                                                   microbatches=microbatches))
-        kops.flash_attention_fwd = fwd
-        try:
+        with swapped(*fns):
             _, _, m = step(params, init_opt_state(params), batch)
-        finally:
-            kops.flash_attention_fwd = kernel_fwd
         return {k: float(v) for k, v in m.items()}
 
-    # one counted step, then the same step again (is it bit-repeatable?)
+    # one counted step (and no call of a plain attention in it), then the
+    # same step again (is it bit-repeatable?)
     _build.reset_launches()
-    got = fresh_step()
-    sync()
+    with ref_calls() as plain_calls:
+        got = fresh_step()
+        sync()
     counts = dict(_build.LAUNCHES)
     by_design = dict(_build.FLASH_DESIGN_LAUNCHES)
-    n_flash = 2 * cfg.n_layers
-    check(counts == {**{n: 0 for n in counts}, "flash_attention_fwd": n_flash},
-          f"train step launches {counts}, want {n_flash} flash_attention_fwd")
-    check(by_design == {"sm90": n_flash, "simple": 0},
-          f"train step flash launches by design {by_design}, want all sm90")
+    bwd_by_design = dict(_build.FLASH_BWD_DESIGN_LAUNCHES)
+    n_flash, n_bwd = 2 * cfg.n_layers, cfg.n_layers
+    check(counts == {**{n: 0 for n in counts}, "flash_attention_fwd": n_flash,
+                     "flash_attention_bwd": n_bwd},
+          f"train step launches {counts}, want {n_flash} flash_attention_fwd and "
+          f"{n_bwd} flash_attention_bwd")
+    check(by_design == {"sm90": n_flash, "simple": 0}
+          and bwd_by_design == {"sm90": n_bwd, "simple": 0},
+          f"train step flash launches by design {by_design}, backward "
+          f"{bwd_by_design}, want all sm90")
+    check(not any(plain_calls.values()),
+          f"train step called plain attention: {plain_calls}")
     check(all(math.isfinite(x) for x in got.values()), f"train step metrics {got}")
     again = fresh_step()
     repeat = got == again
-    # the kernel against its plain version: full depth in bf16
-    plain = fresh_step(fwd=plain_fwd)
+    # the kernels against their plain versions: full depth in bf16
+    plain = fresh_step(fns=(plain_fwd, plain_bwd))
     loss_rel = abs(got["loss"] - plain["loss"]) / abs(plain["loss"])
     gn_rel = abs(got["grad_norm"] - plain["grad_norm"]) / plain["grad_norm"]
     check(loss_rel <= TRAIN_BF16_LOSS_RTOL,
@@ -525,7 +621,9 @@ def train_phase(dev, flash_err) -> dict:
           f"microbatches=2 loss {micro['loss']} vs {got['loss']}")
     log(f"train {cfg.name} B={B} S={S}, {cfg.n_layers} layers, bf16, remat: step launches "
         f"{counts['flash_attention_fwd']} flash_attention_fwd (by design "
-        f"{by_design}); loss {got['loss']:.6f}, grad norm "
+        f"{by_design}) and {counts['flash_attention_bwd']} flash_attention_bwd (by "
+        f"design {bwd_by_design}), calls of plain attention {plain_calls}; "
+        f"loss {got['loss']:.6f}, grad norm "
         f"{got['grad_norm']:.6f}; repeated step bit-equal: {repeat}; plain "
         f"version: loss {plain['loss']:.6f} (rel {loss_rel:.3g}), grad norm "
         f"{plain['grad_norm']:.6f} (rel {gn_rel:.3g}); microbatches=2 loss "
@@ -542,21 +640,20 @@ def train_phase(dev, flash_err) -> dict:
                                  seq=lm_sizes.CHIP_TRAIN_F32_SEQ, seed=1), 0)
     leaves32 = leaves(m32.params())
 
-    def grads32(fwd):
-        kops.flash_attention_fwd = fwd
-        try:
+    def grads32(fns):
+        with swapped(*fns):
             loss, _ = m32.loss(b32, remat=True)
             return loss.item(), torch.autograd.grad(loss, leaves32)
-        finally:
-            kops.flash_attention_fwd = kernel_fwd
 
     _build.reset_launches()
-    l_k, g_k = grads32(kernel_fwd)
+    l_k, g_k = grads32(kernels)
     sync()
     by_design = dict(_build.FLASH_DESIGN_LAUNCHES)
-    check(by_design == {"sm90": 0, "simple": 2 * cfg32.n_layers},
-          f"f32 train launches by design {by_design}, want all simple")
-    l_p, g_p = grads32(plain_fwd)
+    bwd32 = dict(_build.FLASH_BWD_DESIGN_LAUNCHES)
+    check(by_design == {"sm90": 0, "simple": 2 * cfg32.n_layers}
+          and bwd32 == {"sm90": 0, "simple": cfg32.n_layers},
+          f"f32 train launches by design {by_design}, backward {bwd32}, want all simple")
+    l_p, g_p = grads32((plain_fwd, plain_bwd))
     f32_loss_rel = abs(l_k - l_p) / abs(l_p)
     f32_grad_rel = max(((a - b).norm() / b.norm()).item() for a, b in zip(g_k, g_p))
     check(f32_loss_rel <= TRAIN_F32_LOSS_RTOL, f"f32 loss {l_k} vs plain {l_p}")
@@ -564,7 +661,7 @@ def train_phase(dev, flash_err) -> dict:
           f"f32 gradients: largest relative L2 error {f32_grad_rel}")
     log(f"train {cfg32.n_layers} layers f32 B={b32['tokens'].shape[0]} "
         f"S={b32['tokens'].shape[1]}: {by_design['simple']} simple flash "
-        f"launches; loss {l_k:.7f} vs plain {l_p:.7f} (rel {f32_loss_rel:.3g}); "
+        f"launches, {bwd32['simple']} simple backward launches; loss {l_k:.7f} vs plain {l_p:.7f} (rel {f32_loss_rel:.3g}); "
         f"largest relative L2 error of a gradient leaf {f32_grad_rel:.3g} "
         f"over {len(g_k)} leaves")
     del m32, g_k, g_p, leaves32
@@ -647,7 +744,7 @@ def train_phase(dev, flash_err) -> dict:
         wall = 1e3 * (time.perf_counter() - t1)
     # the step's record_function ranges also appear on the device's
     # timeline (as annotations spanning their kernels): kernels only here
-    ranges = ("loss_and_grads", "adamw_update", "flash_attention_bwd_recompute")
+    ranges = ("loss_and_grads", "adamw_update")
     by_name = {}
     for e in prof.key_averages():
         if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0 \
@@ -670,28 +767,30 @@ def train_phase(dev, flash_err) -> dict:
         shares = dict(
             busy_ms=busy, wall_ms=wall,
             flash_fwd_ms=sum(v for k, v in by_name.items() if "flash_fwd" in k),
-            recompute_ms=range_ms("flash_attention_bwd_recompute"),
-            recompute_gemm_ms=range_ms("flash_attention_bwd_recompute", is_gemm),
+            flash_bwd_ms=sum(v for k, v in by_name.items() if "flash_bwd" in k),
             gemm_ms=sum(v for k, v in by_name.items() if is_gemm(k)),
             adamw_ms=range_ms("adamw_update"))
-        # the kernel at the step's shape (BH=60, S=4096, D=64) against the
-        # bound of its operations at the bf16 peak
+        # the kernels at the step's shape (BH=60, S=4096, D=64) against the
+        # bounds of their operations at the bf16 peak
         qbh, hd = B * cfg.n_heads, cfg.hd
         shares.update(flash_launch_ms=shares["flash_fwd_ms"] / n_flash,
                       flash_bound_ms=1e3 * 4 * hd * qbh * S * (S + 1) / 2
+                      / BF16_FLOP_PER_S,
+                      flash_bwd_launch_ms=shares["flash_bwd_ms"] / n_bwd,
+                      flash_bwd_bound_ms=1e3 * 10 * hd * qbh * S * (S + 1) / 2
                       / BF16_FLOP_PER_S)
         log(f"profile train step, profiler on: wall {wall:.3f} ms, device busy "
             f"{busy:.3f} ms ({100 * busy / wall:.1f}%); flash_attention_fwd "
             f"{shares['flash_fwd_ms']:.3f} ms ({100 * shares['flash_fwd_ms'] / busy:.1f}%), "
-            f"attention backward recompute {shares['recompute_ms']:.3f} ms "
-            f"({100 * shares['recompute_ms'] / busy:.1f}%, of it GEMMs "
-            f"{shares['recompute_gemm_ms']:.3f}), GEMMs in all "
-            f"{shares['gemm_ms']:.3f} ms ({100 * shares['gemm_ms'] / busy:.1f}%; "
-            f"outside the recompute {shares['gemm_ms'] - shares['recompute_gemm_ms']:.3f}), "
+            f"flash_attention_bwd {shares['flash_bwd_ms']:.3f} ms "
+            f"({100 * shares['flash_bwd_ms'] / busy:.1f}%), GEMMs "
+            f"{shares['gemm_ms']:.3f} ms ({100 * shares['gemm_ms'] / busy:.1f}%), "
             f"AdamW {shares['adamw_ms']:.3f} ms; flash_attention_fwd "
             f"{shares['flash_launch_ms']:.4f} ms a launch at BH={qbh}, S={S} "
-            f"against a bound of {shares['flash_bound_ms']:.4f} ms")
-        for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+            f"against a bound of {shares['flash_bound_ms']:.4f} ms; "
+            f"flash_attention_bwd {shares['flash_bwd_launch_ms']:.4f} ms a launch "
+            f"against {shares['flash_bwd_bound_ms']:.4f} ms")
+        for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:14]:
             log(f"  {t:.3f} ms  {name[:100]}")
     else:
         log("profile train step: the profiler recorded no device time (not measured)")
@@ -738,14 +837,112 @@ def train_phase(dev, flash_err) -> dict:
         f"{B * S / ms * 1e3:.0f} tokens/s; peak memory {peak / 2**30:.2f} GiB "
         f"above the {base_mem / 2**30:.2f} GiB held before the phase "
         f"({time.perf_counter() - t0:.1f} s)")
-    return dict(launches=counts["flash_attention_fwd"], training=dict(
+    bwd = bwd_checks(dev)
+    return dict(launches=counts["flash_attention_fwd"],
+                bwd_launches=counts["flash_attention_bwd"], bwd=bwd, training=dict(
         launches_per_step=n_flash, by_design={"sm90": n_flash, "simple": 0},
+        bwd_launches_per_step=n_bwd, bwd_by_design={"sm90": n_bwd, "simple": 0},
+        ref_attention_calls=plain_calls,
         batch=B, seq=S, ms_per_step=ms, tokens_per_s=B * S / ms * 1e3,
         peak_bytes=peak, loss=got["loss"], grad_norm=got["grad_norm"],
         repeat_bit_equal=repeat, plain_loss_rel=loss_rel, plain_gnorm_rel=gn_rel,
         microbatch2_loss_rel=micro_rel, f32_loss_rel=f32_loss_rel,
         f32_grad_rel_l2=f32_grad_rel, resume_bit_equal=same,
         flash_at_train_shape=flash_at_s, profile=shares))
+
+
+def bwd_checks(dev) -> dict:
+    """``flash_attention_bwd`` alone, on inputs from a seeded generator and
+    the forward kernel's o and lse: the Hopper design at
+    ``BWD_SM90_SHAPES`` (bf16, causal, 128-blocks) and the simple design at
+    ``BWD_SIMPLE_CASES`` (causal, 128-blocks, 64 at D=1152), each launch's
+    design asserted and dq, dk, dv held against the plain version on the
+    same inputs (relative L2 error, ``BWD_*``); each timed with CUDA events
+    beside its plain version, ``aten._scaled_dot_product_flash_attention_
+    backward`` where it takes the dtype and head dim (a yardstick the port
+    never calls) and the bound of its operations (10·D per visible (q row,
+    key) pair) or bytes, whichever is larger. Returns the readings for the
+    ``flash_attention_bwd`` row: the top-level numbers are the Hopper
+    design's at the training step's shape."""
+    import torch
+
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.flash_attn import (flash_attention_bwd,
+                                                flash_attention_fwd, flash_design)
+
+    t0 = time.perf_counter()
+    sync = torch.cuda.synchronize
+    gen = torch.Generator(device=dev).manual_seed(3)
+    peak = {torch.float32: F32_FLOP_PER_S, torch.bfloat16: BF16_FLOP_PER_S,
+            torch.float16: F16_FLOP_PER_S, torch.float8_e4m3fn: FP8_FLOP_PER_S}
+
+    def one(dtype, BH, S, D, blk, want_design, tol):
+        q, k, v, do = (ref.round_to(torch.randn((BH, S, D), generator=gen, device=dev),
+                                    dtype) for _ in range(4))
+        o, lse = flash_attention_fwd(q, k, v, causal=True, block_q=blk, block_k=blk,
+                                     return_lse=True)
+        kw = dict(causal=True, block_q=blk, block_k=blk)
+        kernel = lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        plain = lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+        check(flash_design(dtype, D, blk, blk) == want_design,
+              f"flash_attention_bwd {dtype} D={D}: design {flash_design(dtype, D, blk, blk)}")
+        _build.reset_launches()
+        got = kernel()
+        sync()
+        check(dict(_build.FLASH_BWD_DESIGN_LAUNCHES) == {"sm90": 0, "simple": 0,
+                                                         want_design: 1},
+              f"flash_attention_bwd {dtype} {(BH, S, D)} ran "
+              f"{dict(_build.FLASH_BWD_DESIGN_LAUNCHES)}, want {want_design}")
+        want = plain()
+        rel = [((a.float() - b.float()).norm() / b.float().norm()).item()
+               for a, b in zip(got, want)]
+        err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+        what = f"flash_attention_bwd {want_design} {dtype} (BH, S, D) = {(BH, S, D)}"
+        check(all(a.dtype == dtype and a.shape == b.shape
+                  and bool(torch.isfinite(a.float()).all()) for a, b in zip(got, want))
+              and max(rel) <= tol,
+              f"{what}: relative L2 errors of dq, dk, dv {rel} (tolerance {tol})")
+        del got, want
+        ops = 10 * D * BH * S * (S + 1) // 2
+        nbytes = (8 * q.numel()) * q.element_size() + 4 * lse.numel()
+        b_ops, b_bytes = 1e3 * ops / peak[dtype], 1e3 * nbytes / HBM_BYTES_PER_S
+        big = BH * S * S > 5e8
+        r = dict(shape=[BH, S, D], dtype=str(dtype).split(".")[-1], design=want_design,
+                 rel_l2=dict(zip(("dq", "dk", "dv"), rel)), max_abs_err=err,
+                 ms=events_ms(kernel, reps=3 if big else 5, inner=1 if big else 5),
+                 plain_ms=events_ms(plain, reps=3, inner=1),
+                 bound_ms=max(b_ops, b_bytes),
+                 bound_by="operations" if b_ops >= b_bytes else "bytes",
+                 library_ms=None)
+        if dtype in (torch.bfloat16, torch.float16) and D <= 256:
+            q4, k4, v4, do4 = (t.view(1, BH, S, D) for t in (q, k, v, do))
+            fwd = torch.ops.aten._scaled_dot_product_flash_attention(
+                q4, k4, v4, 0.0, True, False)
+            o4, lse4, cq, ck, mq, mk, seed, offset = fwd[:8]
+            r["library_ms"] = events_ms(
+                lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+                    do4, q4, k4, v4, o4, lse4, cq, ck, mq, mk, 0.0, True, seed, offset))
+            del fwd, o4, lse4
+        log(f"{what} causal, blocks {blk}: relative L2 errors of dq, dk, dv against "
+            f"the plain version {', '.join(f'{e:.3g}' for e in rel)} (max |d| "
+            f"{err:.3g}); {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
+            + (f"library flash backward {r['library_ms']:.4f} ms, "
+               if r["library_ms"] is not None else "")
+            + f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({ops / 1e9:.1f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB; {100 * r['bound_ms'] / r['ms']:.1f}% of it reached)")
+        return r
+
+    sm90 = [one(torch.bfloat16, BH, S, D, 128, "sm90", BWD_SM90_REL_L2)
+            for BH, S, D in BWD_SM90_SHAPES]
+    simple = [one(getattr(torch, dt), BH, S, D, 64 if D > 1024 else 128, "simple",
+                  BWD_F32_REL_L2 if dt == "float32" else torch.finfo(getattr(torch, dt)).eps)
+              for dt, BH, S, D in BWD_SIMPLE_CASES]
+    top = sm90[0]
+    log(f"flash_attention_bwd alone: {len(sm90)} Hopper and {len(simple)} simple "
+        f"cases ({time.perf_counter() - t0:.1f} s)")
+    return dict(max_abs_err=top["max_abs_err"], ms=top["ms"], plain_ms=top["plain_ms"],
+                bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+                library_ms=top["library_ms"], sm90=sm90, simple=simple)
 
 
 # one rank of two sharing card 0: a process group of ``backend``, then a
@@ -977,8 +1174,9 @@ def mesh_phase(dev, unsharded: dict) -> dict:
     ``sanitize_specs``, the residual pinned by ``act_spec=(batch_axes,
     "model", None)`` (the dry run's ``act_seq_shard``). Three steps held
     against the unsharded ``make_train_step`` on the same weights and
-    batches (``train_phase``'s bf16 gates), 64 ``sm90`` flash launches a
-    step (counted: a main path), the sharded tree checkpointed and
+    batches (``train_phase``'s bf16 gates), 64 ``sm90`` flash launches and
+    32 ``sm90`` backward launches a step (counted: a main path), the
+    sharded tree checkpointed and
     restored with ``shardings=`` onto the mesh bit for bit; then ms per
     step, peak memory and one profiled step's busy share beside
     ``unsharded`` (``train_phase``'s readings). Ranks sharing one card:
@@ -1018,7 +1216,7 @@ def mesh_phase(dev, unsharded: dict) -> dict:
         cfg = dataclasses.replace(lm_sizes.CONFIG, use_flash_kernel=True)
         scfg = dataclasses.replace(cfg, act_spec=(batch_axes(mesh), "model", None))
         B, S = lm_sizes.CHIP_TRAIN_BATCH, lm_sizes.CHIP_TRAIN_SEQ
-        n_flash = 2 * cfg.n_layers
+        n_flash, n_bwd = 2 * cfg.n_layers, cfg.n_layers
         opt = OptConfig(warmup_steps=1, total_steps=10)
         pipe = TokenPipeline(vocab=cfg.vocab, batch=B, seq=S, seed=0)
         batches = [{k: torch.from_numpy(v).to(dev) for k, v in pipe.batch_at(i).items()}
@@ -1047,11 +1245,16 @@ def mesh_phase(dev, unsharded: dict) -> dict:
             walls.append(1e3 * (time.perf_counter() - t1))
             counts = dict(_build.LAUNCHES)
             by_design = dict(_build.FLASH_DESIGN_LAUNCHES)
-            check(counts == {**{n: 0 for n in counts}, "flash_attention_fwd": n_flash},
-                  f"mesh step launches {counts}, want {n_flash} flash_attention_fwd")
-            check(by_design == {"sm90": n_flash, "simple": 0},
-                  f"mesh step flash launches by design {by_design}")
-        launches = n_flash * len(batches)
+            bwd_by_design = dict(_build.FLASH_BWD_DESIGN_LAUNCHES)
+            check(counts == {**{n: 0 for n in counts}, "flash_attention_fwd": n_flash,
+                             "flash_attention_bwd": n_bwd},
+                  f"mesh step launches {counts}, want {n_flash} flash_attention_fwd "
+                  f"and {n_bwd} flash_attention_bwd")
+            check(by_design == {"sm90": n_flash, "simple": 0}
+                  and bwd_by_design == {"sm90": n_bwd, "simple": 0},
+                  f"mesh step flash launches by design {by_design}, backward "
+                  f"{bwd_by_design}")
+        launches, bwd_launches = n_flash * len(batches), n_bwd * len(batches)
 
         # the unsharded step on the same weights and batches
         plain_model = Model(cfg, device=dev).requires_grad_()
@@ -1077,7 +1280,8 @@ def mesh_phase(dev, unsharded: dict) -> dict:
         del plain_model, pparams, pstate, pstep
         torch.cuda.empty_cache()
         log(f"mesh {cfg.name} B={B} S={S} on a (1, 1) nccl mesh, {MESH_STEPS} steps: "
-            f"{n_flash} sm90 flash launches a step; losses "
+            f"{n_flash} sm90 flash launches and {n_bwd} sm90 backward launches a "
+            f"step; losses "
             f"{[round(g['loss'], 6) for g in got]}, grad norms "
             f"{[round(g['grad_norm'], 6) for g in got]}; against the unsharded "
             f"step: loss rel {loss_rel:.3g}, grad norm rel {gn_rel:.3g}, metrics "
@@ -1127,11 +1331,11 @@ def mesh_phase(dev, unsharded: dict) -> dict:
             wall = 1e3 * (time.perf_counter() - t1)
         by_name = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
                    if str(e.device_type).endswith("CUDA")
-                   and e.key not in ("loss_and_grads", "adamw_update",
-                                     "flash_attention_bwd_recompute")}
+                   and e.key not in ("loss_and_grads", "adamw_update")}
         busy = sum(by_name.values())
         busy_share = busy / wall if busy else None
         flash_ms = sum(v for k, v in by_name.items() if "flash_fwd" in k) / n_flash
+        bwd_ms = sum(v for k, v in by_name.items() if "flash_bwd" in k) / n_bwd
         log(f"mesh step {ms:.3f} ms (median of {len(times)}: "
             f"{', '.join(f'{w:.1f}' for w in times)}; the checked steps "
             f"{', '.join(f'{w:.1f}' for w in walls)}) against the unsharded "
@@ -1139,7 +1343,7 @@ def mesh_phase(dev, unsharded: dict) -> dict:
             f"peak {peak / 2**30:.2f} GiB against {unsharded['peak_bytes'] / 2**30:.2f}; "
             + (f"profiled step: wall {wall:.3f} ms, device busy {busy:.3f} ms "
                f"({100 * busy_share:.1f}%), flash_attention_fwd {flash_ms:.4f} ms "
-               f"a launch" if busy else
+               f"a launch, flash_attention_bwd {bwd_ms:.4f} ms a launch" if busy else
                "profiled step: no device time recorded (not measured)")
             + f" ({time.perf_counter() - t0:.1f} s)")
         # the dry run on the card, with the mesh up (the phase's own
@@ -1153,9 +1357,10 @@ def mesh_phase(dev, unsharded: dict) -> dict:
             + "; ".join(f"{b} exit {r['exit_codes']} ({r['last_line'][:160]})"
                         for b, r in shared.items())
             + f" ({time.perf_counter() - t0:.1f} s)")
-        return dict(launches=launches, mesh=dict(
+        return dict(launches=launches, bwd_launches=bwd_launches, mesh=dict(
             mesh=[1, 1], backend="nccl", batch=B, seq=S, steps=MESH_STEPS,
-            launches_per_step=n_flash, losses=[g["loss"] for g in got],
+            launches_per_step=n_flash, bwd_launches_per_step=n_bwd,
+            losses=[g["loss"] for g in got],
             grad_norms=[g["grad_norm"] for g in got], loss_rel=loss_rel,
             gnorm_rel=gn_rel, metrics_bit_equal=metrics_equal,
             params_bit_equal=params_equal, ckpt_bytes=nbytes, ckpt_save_s=save_s,
@@ -1163,6 +1368,7 @@ def mesh_phase(dev, unsharded: dict) -> dict:
             unsharded["ms_per_step"], peak_bytes=peak, busy_ms=busy or None,
             wall_ms=wall, busy_share=busy_share,
             flash_launch_ms=flash_ms if busy else None,
+            flash_bwd_launch_ms=bwd_ms if busy else None,
             seconds=time.perf_counter() - t0,
             shared_card=shared), dryrun=dry)
     finally:
@@ -1915,6 +2121,14 @@ def main() -> int:
     check(n_hgmma > 0 and n_tma > 0,
           f"flash_attn_sm90 SASS holds {n_hgmma} HGMMA and {n_tma} UTMALDG")
     log(f"flash_attn_sm90 SASS: {n_hgmma} HGMMA, {n_tma} UTMALDG instructions")
+    # and so does the Hopper backward, its lse and Δ by 1-D bulk copies
+    sass = sass_of("flash_attn_bwd_sm90")
+    n_hgmma, n_tma, n_blk = sass.count("HGMMA"), sass.count("UTMALDG"), sass.count("UBLKCP")
+    check(n_hgmma > 0 and n_tma > 0 and n_blk > 0,
+          f"flash_attn_bwd_sm90 SASS holds {n_hgmma} HGMMA, {n_tma} UTMALDG and "
+          f"{n_blk} UBLKCP")
+    log(f"flash_attn_bwd_sm90 SASS: {n_hgmma} HGMMA, {n_tma} UTMALDG, {n_blk} UBLKCP "
+        f"instructions")
     # the Hopper stencil design: every instance built, and no contracted
     # multiply-add anywhere (bit-exactness rests on separate FMUL and FADD)
     sass = sass_of("stencil3d_sm90")
@@ -3113,8 +3327,11 @@ def main() -> int:
         f"the prefill's argmax {first}/{B_D} ({time.perf_counter() - t1:.1f} s)")
 
     sync()
+    # flash_attention_bwd's main path is the training step (train_phase
+    # asserts its 32 launches a step there)
     for name, n in main_launches.items():
-        check(n > 0, f"{name} was not launched on its main path")
+        check(n > 0 or name == "flash_attention_bwd",
+              f"{name} was not launched on its main path")
     log(f"main paths: launches {main_launches} "
         f"({time.perf_counter() - t0:.1f} s)")
 
@@ -3276,10 +3493,13 @@ def main() -> int:
                per_call_ms=r_ms["Hopper design"],
                first_design_ms=r_dev["first design"][0])
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        m_ms, _, m_b, _, m_lib, _, _ = blocks_row(cube, dtype)
+        m_ms, _, m_b, _, m_lib, m_plain, _ = blocks_row(cube, dtype)
         row.update({f"m256_{tag}_ms": m_ms["Hopper design"],
                     f"m256_{tag}_first_design_ms": m_ms["first design"],
-                    f"m256_{tag}_bound_ms": m_b, f"m256_{tag}_library_ms": m_lib})
+                    f"m256_{tag}_bound_ms": m_b, f"m256_{tag}_library_ms": m_lib,
+                    f"m256_{tag}_plain_ms": cuda_ms(m_plain, reps=3, inner=1)})
+        log(f"stencil_sum_blocks M={cube.shape[0]} {dtype}: plain version "
+            f"{row[f'm256_{tag}_plain_ms']:.3f} ms")
     kernels.append(row)
     # gather_rows at the distributed path's deep-face shape: the i0 face at
     # h = S·g = 4 of the M=256, T=8 Hilbert block store (8,192 rows of 64
@@ -3784,11 +4004,17 @@ def main() -> int:
     flash_row = next(k for k in kernels if k["name"] == "flash_attention_fwd")
     flash_row["launches"] += tr["launches"]
     flash_row["training"] = tr["training"]
+    bwd_row = dict(name="flash_attention_bwd", route="cuda",
+                   source=SOURCES["flash_attention_bwd"],
+                   replaces=REPLACES["flash_attention_bwd"],
+                   launches=tr["bwd_launches"], **tr["bwd"])
+    kernels.append(bwd_row)
 
     # the training path over a device mesh (its launches counted, added)
     torch.cuda.empty_cache()
     me = mesh_phase(dev, tr["training"])
     flash_row["launches"] += me["launches"]
+    bwd_row["launches"] += me["bwd_launches"]
     flash_row["mesh"] = me["mesh"]
     flash_row["dryrun"] = me["dryrun"]
 

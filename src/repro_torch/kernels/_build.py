@@ -19,8 +19,9 @@ nvcc.
 :func:`launch` runs one kernel's C entry point on the current stream,
 raises on the error code it returns, and adds one to the kernel's count
 in :data:`LAUNCHES` — the port's one launch counter, shared by every
-wrapper (the flash wrapper also counts each launch under its design in
-:data:`FLASH_DESIGN_LAUNCHES`, the fused and resident stencil wrappers in
+wrapper (the flash wrappers also count each launch under its design in
+:data:`FLASH_DESIGN_LAUNCHES` and :data:`FLASH_BWD_DESIGN_LAUNCHES`, the
+fused and resident stencil wrappers in
 :data:`STENCIL_DESIGN_LAUNCHES`, the repack tap sum in
 :data:`BLOCKS_DESIGN_LAUNCHES`).
 """
@@ -38,18 +39,21 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["BLOCKS_DESIGN_LAUNCHES", "FLASH_DESIGN_LAUNCHES", "LAUNCHES",
+__all__ = ["BLOCKS_DESIGN_LAUNCHES", "FLASH_BWD_DESIGN_LAUNCHES",
+           "FLASH_DESIGN_LAUNCHES", "LAUNCHES",
            "NVCC_FLAGS", "SOURCES",
            "STENCIL_DESIGN_LAUNCHES", "build", "launch", "library", "nvcc_path",
            "reset_launches"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-# flash_attention_fwd's simple design is one source per element type
-# (csrc/flash_attn.cuh), so that its 35 instances build in parallel.
+# flash attention's simple designs are one source per element type
+# (csrc/flash_attn.cuh and csrc/flash_attn_bwd.cuh), so that their
+# instances build in parallel.
 SOURCES = ("stencil3d", "stencil3d_sm90", "stencil3d_blocks_sm90", "sfc_gather",
            "flash_attn_f32", "flash_attn_bf16", "flash_attn_f16",
-           "flash_attn_e4m3", "flash_attn_e5m2", "flash_attn_sm90")
+           "flash_attn_e4m3", "flash_attn_e5m2", "flash_attn_sm90",
+           "flash_attn_bwd_sm90")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-prec-div=true", "-prec-sqrt=true", "-ftz=false",
@@ -62,10 +66,13 @@ _LOCK = threading.Lock()
 # adds one where it launches its kernel and nowhere else.
 LAUNCHES = {"stencil_step_fused": 0, "stencil_sum_resident": 0,
             "stencil_sum_blocks": 0, "gather_rows": 0,
-            "flash_attention_fwd": 0}
+            "flash_attention_fwd": 0, "flash_attention_bwd": 0}
 # flash_attention_fwd's launches by design (kernels/flash_attn.flash_design):
 # each also counts once in LAUNCHES["flash_attention_fwd"].
 FLASH_DESIGN_LAUNCHES = {"sm90": 0, "simple": 0}
+# flash_attention_bwd's launches by design (the same flash_design): each
+# also counts once in LAUNCHES["flash_attention_bwd"].
+FLASH_BWD_DESIGN_LAUNCHES = {"sm90": 0, "simple": 0}
 # stencil_step_fused's and stencil_sum_resident's launches by design
 # (kernels/stencil3d.fused_design): each also counts once in LAUNCHES.
 STENCIL_DESIGN_LAUNCHES = {"sm90": 0, "simple": 0}
@@ -75,8 +82,8 @@ BLOCKS_DESIGN_LAUNCHES = {"sm90": 0, "simple": 0}
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, FLASH_DESIGN_LAUNCHES, STENCIL_DESIGN_LAUNCHES,
-                   BLOCKS_DESIGN_LAUNCHES):
+    for counts in (LAUNCHES, FLASH_DESIGN_LAUNCHES, FLASH_BWD_DESIGN_LAUNCHES,
+                   STENCIL_DESIGN_LAUNCHES, BLOCKS_DESIGN_LAUNCHES):
         for name in counts:
             counts[name] = 0
 

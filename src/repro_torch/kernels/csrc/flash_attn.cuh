@@ -26,7 +26,11 @@
 // key gives 0, the output rounded once to q's dtype (fp8 as XLA rounds:
 // fp8_round.cuh; the output is a convex combination of v's rows, so it
 // cannot overflow). Products and sums are explicit fmaf, so the build's
-// -fmad=false costs nothing here.
+// -fmad=false costs nothing here. Where the caller asks for it (a non-null
+// lse, for the backward: flash_attn_bwd.cuh), each row's log-sum-exp of
+// its scaled scores, m + log(l) in f32, is stored beside the output; a row
+// with no key stores +inf, the sentinel under which the backward's
+// exp(s - lse) is 0. Serving passes null and stores nothing more.
 //
 // Design (the simple first kernel): one thread per q row (blockDim = the q
 // block, 1..128 rows), its q row and f32 accumulator in registers; each
@@ -172,8 +176,8 @@ template <typename T, int DP>
 __global__ void __launch_bounds__(max_rows(DP) * threads_per_row(DP))
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 const int* __restrict__ plan, int bh0, int sq, int sk, int d,
-                 int bq, int bk, int causal, float scale) {
+                 float* __restrict__ lse, const int* __restrict__ plan, int bh0,
+                 int sq, int sk, int d, int bq, int bk, int causal, float scale) {
   constexpr int NS = threads_per_row(DP);  // threads per q row
   constexpr int DH = DP / NS;              // head-dim columns per thread
   constexpr int RP = row_pitch(DP);        // a tile row in shared memory
@@ -296,12 +300,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int c = 0; c < DH; ++c) {
     if (live && c0 + c < d) store(o + qbase + c0 + c, acc[c] * inv);
   }
+  if (lse != nullptr && live && c0 == 0)
+    lse[bh * sq + row] = l > 0.f ? m + logf(l) : INFINITY;
 }
 
 template <typename T, int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   const int* plan, int bh, int sq, int sk, int d, int bq,
-                   int bk, int causal, float scale, cudaStream_t stream) {
+                   float* lse, const int* plan, int bh, int sq, int sk, int d,
+                   int bq, int bk, int causal, float scale, cudaStream_t stream) {
   const int kt = bk < staged_keys(DP) ? bk : staged_keys(DP);
   const size_t smem = 2 * static_cast<size_t>(kt) * row_pitch(DP) * sizeof(float);
   auto kern = flash_fwd_kernel<T, DP>;
@@ -314,8 +320,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     const int nh = bh - h0 < MAX_GRID_Y ? bh - h0 : MAX_GRID_Y;
     kern<<<dim3(sq / bq * parts, nh), rows * threads_per_row(DP), smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), plan, h0, sq, sk, d, bq,
-        bk, causal, scale);
+        static_cast<const T*>(v), static_cast<T*>(o), lse, plan, h0, sq, sk, d,
+        bq, bk, causal, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -344,7 +350,8 @@ template <typename T>
 __global__ void __launch_bounds__(WR * WK)
 flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ o,
-                      float* __restrict__ ws, const int* __restrict__ plan,
+                      float* __restrict__ lse, float* __restrict__ ws,
+                      const int* __restrict__ plan,
                       int bh0, int sq, int sk, int d, int bq, int bk,
                       int causal, float scale) {
   __shared__ float qs[WR * WP];   // a slice of the q rows
@@ -439,6 +446,8 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
   if (tid < WR) scale_r[tid] = l > 0.f ? 1.f / l : 0.f;
+  if (lse != nullptr && tid < nr)
+    lse[bh * sq + r0 + tid] = l > 0.f ? m + logf(l) : INFINITY;
   __syncthreads();  // and every thread's last acc update is visible
   for (int e = tid; e < nr * d; e += blockDim.x)
     store(o + qbase + e, acc[e] * scale_r[e / d]);
@@ -446,7 +455,7 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T>
 cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o,
-                        float* ws, const int* plan, int bh, int sq, int sk,
+                        float* lse, float* ws, const int* plan, int bh, int sq, int sk,
                         int d, int bq, int bk, int causal, float scale,
                         cudaStream_t stream) {
   const int parts = (bq + WR - 1) / WR;
@@ -454,8 +463,8 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o,
     const int nh = bh - h0 < MAX_GRID_Y ? bh - h0 : MAX_GRID_Y;
     flash_fwd_wide_kernel<T><<<dim3(sq / bq * parts, nh), WR * WK, 0, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), ws, plan, h0, sq, sk, d,
-        bq, bk, causal, scale);
+        static_cast<const T*>(v), static_cast<T*>(o), lse, ws, plan, h0, sq, sk,
+        d, bq, bk, causal, scale);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -464,36 +473,37 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o,
 
 template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
-                     const int* plan, int bh, int sq, int sk, int d, int bq,
-                     int bk, int causal, float scale, cudaStream_t st) {
-  if (d <= 16) return launch<T, 16>(q, k, v, o, plan, bh, sq, sk, d, bq, bk, causal, scale, st);
-  if (d <= 32) return launch<T, 32>(q, k, v, o, plan, bh, sq, sk, d, bq, bk, causal, scale, st);
-  if (d <= 64) return launch<T, 64>(q, k, v, o, plan, bh, sq, sk, d, bq, bk, causal, scale, st);
-  if (d <= 128) return launch<T, 128>(q, k, v, o, plan, bh, sq, sk, d, bq, bk, causal, scale, st);
-  if (d <= 256) return launch<T, 256>(q, k, v, o, plan, bh, sq, sk, d, bq, bk, causal, scale, st);
-  if (d <= 512) return launch<T, 512>(q, k, v, o, plan, bh, sq, sk, d, bq, bk, causal, scale, st);
-  return launch<T, 1024>(q, k, v, o, plan, bh, sq, sk, d, bq, bk, causal, scale, st);
+                     float* lse, const int* plan, int bh, int sq, int sk, int d,
+                     int bq, int bk, int causal, float scale, cudaStream_t st) {
+  if (d <= 16) return launch<T, 16>(q, k, v, o, lse, plan, bh, sq, sk, d, bq, bk, causal, scale, st);
+  if (d <= 32) return launch<T, 32>(q, k, v, o, lse, plan, bh, sq, sk, d, bq, bk, causal, scale, st);
+  if (d <= 64) return launch<T, 64>(q, k, v, o, lse, plan, bh, sq, sk, d, bq, bk, causal, scale, st);
+  if (d <= 128) return launch<T, 128>(q, k, v, o, lse, plan, bh, sq, sk, d, bq, bk, causal, scale, st);
+  if (d <= 256) return launch<T, 256>(q, k, v, o, lse, plan, bh, sq, sk, d, bq, bk, causal, scale, st);
+  if (d <= 512) return launch<T, 512>(q, k, v, o, lse, plan, bh, sq, sk, d, bq, bk, causal, scale, st);
+  return launch<T, 1024>(q, k, v, o, lse, plan, bh, sq, sk, d, bq, bk, causal, scale, st);
 }
 
 // The C entry point of one element type's library: q (bh, sq, d), k and v
 // (bh, sk, d), o (bh, sq, d), contiguous, all of type T, 16-byte aligned; d
 // a multiple of 8, and above MAX_DP ws an f32 workspace of bh * sq * d
-// elements (else unused); bq and bk in [1, 128] dividing sq and sk; plan
-// int32 [q_order (sq/bq) | row_ptr (sq/bq + 1) | cols]. The wrapper checks
-// all of this; the kernel trusts it.
+// elements (else unused); lse null or f32 (bh, sq); bq and bk in [1, 128]
+// dividing sq and sk; plan int32 [q_order (sq/bq) | row_ptr (sq/bq + 1) |
+// cols]. The wrapper checks all of this; the kernel trusts it.
 template <typename T>
-int flash_entry(const void* q, const void* k, const void* v, void* o, void* ws,
-                const void* plan, int bh, int sq, int sk, int d, int bq, int bk,
-                int causal, float scale, void* stream) {
+int flash_entry(const void* q, const void* k, const void* v, void* o, void* lse,
+                void* ws, const void* plan, int bh, int sq, int sk, int d, int bq,
+                int bk, int causal, float scale, void* stream) {
   if (d < 8 || d % 8 || (d > MAX_DP && ws == nullptr) || bh < 1 || bq < 1 ||
       bq > MAX_ROWS || bk < 1 || bk > 128 || sq % bq || sk % bk)
     return static_cast<int>(cudaErrorInvalidValue);
   const int* pl = static_cast<const int*>(plan);
   auto st = static_cast<cudaStream_t>(stream);
+  float* ls = static_cast<float*>(lse);
   if (d > MAX_DP)
-    return static_cast<int>(launch_wide<T>(q, k, v, o, static_cast<float*>(ws), pl,
+    return static_cast<int>(launch_wide<T>(q, k, v, o, ls, static_cast<float*>(ws), pl,
                                            bh, sq, sk, d, bq, bk, causal, scale, st));
-  return static_cast<int>(launch_d<T>(q, k, v, o, pl, bh, sq, sk, d, bq, bk,
+  return static_cast<int>(launch_d<T>(q, k, v, o, ls, pl, bh, sq, sk, d, bq, bk,
                                       causal, scale, st));
 }
 

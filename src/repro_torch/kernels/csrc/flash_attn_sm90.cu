@@ -10,7 +10,12 @@
 // runs the simple kernel of csrc/flash_attn.cuh. The function is the same:
 // scores q.k in f32 scaled by 1/sqrt(D), keys past the causal diagonal
 // (aligned to the end: col <= row + Sk - Sq) masked, an online softmax per
-// row, a row with no key gives 0, the output rounded once to bf16. One
+// row, a row with no key gives 0, the output rounded once to bf16. Where
+// the caller asks for it (a non-null lse, for the backward:
+// flash_attn_bwd_sm90.cu), each row's log-sum-exp of its scaled scores,
+// (m + log2(l)) ln 2 in f32, is stored beside the output, +inf for a row
+// with no key (the sentinel under which the backward's P is 0); serving
+// passes null and stores nothing more. One
 // thread block owns one (bh, q block); blockIdx.x is the q block's place in
 // the order the curve first visits it, and the block walks its kv blocks
 // in the curve's order, from the plan [q_order | row_ptr | cols] that the
@@ -52,154 +57,12 @@
 // of the softmax's instructions (max, exp, sum and the split: about seven
 // per score) beside narrow m64n64 products at D = 64.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_sm90.cuh"
 
 namespace {
 
 constexpr int STAGES = 2;    // K/V ring depth
 constexpr int ROWS_WG = 64;  // q rows per consumer warpgroup (wgmma's M)
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  }
-}
-
-// TMA: copy the box at (column c0, row c1) of a 2-D tensor map into shared
-// memory; the barrier counts the bytes as they land.
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
-                                            int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-         "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor: 128-byte swizzle, start address, leading
-// and stride byte offsets (all in units of 16 bytes).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
-         | (static_cast<uint64_t>(lbo >> 4) << 16)
-         | (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-// 2^x in f32 on the special-function unit (one instruction; relative
-// error about 2^-22, results below 2^-126 flushed to 0).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep the compiler from moving accumulator reads or writes across an
-// asynchronous wgmma.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-// D[64 x N] (+)= A[64 x 16] B[16 x N]: A and B K-major in shared memory.
-template <int N>
-__device__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d);
-// D[64 x N] += A[64 x 16] B[16 x N]: A in registers, B MN-major in shared
-// memory (the transpose bit).
-template <int N>
-__device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,
-                                            uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da,
-                                            uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4],
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4],
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// The accumulator fragment of wgmma m64nNk16 (f32): thread t of the
-// warpgroup holds, for each 8-column group j, d[4j + 2h + e] at row
-// 16 (t / 32) + (t % 32) / 4 + 8h and column 8j + 2 (t % 4) + e.
 
 // S = Q K^T for one warpgroup: q_rows is its 64 rows of the Q tile, k_tile
 // a K stage; both K-major, D in 64-column halves of 128-byte rows.
@@ -305,8 +168,9 @@ __global__ void __launch_bounds__((BQ / ROWS_WG + 1) * 128, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
-                      __nv_bfloat16* __restrict__ o, const int* __restrict__ plan,
-                      int bh0, int sq, int sk, int causal, float scale_log2) {
+                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                      const int* __restrict__ plan, int bh0, int sq, int sk,
+                      int causal, float scale_log2) {
   constexpr int NC = BQ / ROWS_WG;          // consumer warpgroups
   constexpr int Q_BYTES = BQ * D * 2;
   constexpr int KV_BYTES = BK * D * 2;      // one K or V tile
@@ -408,6 +272,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
       inv[h] = sum > 0.f ? 1.f / sum : 0.f;
+      if (lse != nullptr && lane % 4 == 0)
+        lse[static_cast<int64_t>(bh) * sq + r0 + 8 * h] =
+            sum > 0.f ? (m[h] + log2f(sum)) * 0.6931471805599453f : INFINITY;
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -421,54 +288,10 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// cuTensorMapEncodeTiled, fetched from the driver at first use (no -lcuda).
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                  void*, const cuuint64_t*, const cuuint64_t*,
-                                  const cuuint32_t*, const cuuint32_t*,
-                                  CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// A (rows, d) row-major bf16 tensor as a TMA map of (box_rows x 64)
-// boxes with the 128-byte swizzle.
-cudaError_t make_map(CUtensorMap* map, const void* ptr, int64_t rows, int d,
-                     int box_rows) {
-  EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t estr[2] = {1, 1};
-  const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
-      strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
 
 template <int D, int BQ, int BK>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   const int* plan, int bh, int sq, int sk, int causal,
+                   float* lse, const int* plan, int bh, int sq, int sk, int causal,
                    float scale_log2, cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v;
   cudaError_t err = make_map(&tm_q, q, static_cast<int64_t>(bh) * sq, D, BQ);
@@ -484,7 +307,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   for (int h0 = 0; h0 < bh; h0 += 65535) {
     const int nh = bh - h0 < 65535 ? bh - h0 : 65535;
     kern<<<dim3(sq / BQ, nh), (BQ / ROWS_WG + 1) * 128, smem, stream>>>(
-        tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), plan, h0, sq, sk,
+        tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), lse, plan, h0, sq, sk,
         causal, scale_log2);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -494,12 +317,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 template <int D>
 cudaError_t launch_blocks(const void* q, const void* k, const void* v, void* o,
-                          const int* plan, int bh, int sq, int sk, int bq, int bk,
-                          int causal, float sl, cudaStream_t st) {
-  if (bq == 64 && bk == 64) return launch<D, 64, 64>(q, k, v, o, plan, bh, sq, sk, causal, sl, st);
-  if (bq == 64) return launch<D, 64, 128>(q, k, v, o, plan, bh, sq, sk, causal, sl, st);
-  if (bk == 64) return launch<D, 128, 64>(q, k, v, o, plan, bh, sq, sk, causal, sl, st);
-  return launch<D, 128, 128>(q, k, v, o, plan, bh, sq, sk, causal, sl, st);
+                          float* lse, const int* plan, int bh, int sq, int sk,
+                          int bq, int bk, int causal, float sl, cudaStream_t st) {
+  if (bq == 64 && bk == 64) return launch<D, 64, 64>(q, k, v, o, lse, plan, bh, sq, sk, causal, sl, st);
+  if (bq == 64) return launch<D, 64, 128>(q, k, v, o, lse, plan, bh, sq, sk, causal, sl, st);
+  if (bk == 64) return launch<D, 128, 64>(q, k, v, o, lse, plan, bh, sq, sk, causal, sl, st);
+  return launch<D, 128, 128>(q, k, v, o, lse, plan, bh, sq, sk, causal, sl, st);
 }
 
 }  // namespace
@@ -507,21 +330,23 @@ cudaError_t launch_blocks(const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // q (bh, sq, d), k and v (bh, sk, d), o (bh, sq, d): contiguous bf16,
-// 16-byte aligned; d in {64, 128}; bq, bk in {64, 128} dividing sq, sk.
-// plan int32 [q_order (sq/bq) | row_ptr (sq/bq + 1) | cols]. scale =
-// 1/sqrt(d). The wrapper checks all of this; the kernel trusts it.
+// 16-byte aligned; lse null or f32 (bh, sq); d in {64, 128}; bq, bk in
+// {64, 128} dividing sq, sk. plan int32 [q_order (sq/bq) | row_ptr (sq/bq +
+// 1) | cols]. scale = 1/sqrt(d). The wrapper checks all of this; the
+// kernel trusts it.
 int repro_flash_attention_fwd_sm90(const void* q, const void* k, const void* v,
-                                   void* o, const void* plan, int bh, int sq,
-                                   int sk, int d, int bq, int bk, int causal,
-                                   float scale, void* stream) {
+                                   void* o, void* lse, const void* plan, int bh,
+                                   int sq, int sk, int d, int bq, int bk,
+                                   int causal, float scale, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   auto pl = static_cast<const int*>(plan);
+  auto ls = static_cast<float*>(lse);
   if ((d != 64 && d != 128) || (bq != 64 && bq != 128) ||
       (bk != 64 && bk != 128) || sq % bq || sk % bk || bh < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const float sl = scale * 1.4426950408889634f;  // log2(e) / sqrt(d)
-  if (d == 64) return launch_blocks<64>(q, k, v, o, pl, bh, sq, sk, bq, bk, causal, sl, st);
-  return launch_blocks<128>(q, k, v, o, pl, bh, sq, sk, bq, bk, causal, sl, st);
+  if (d == 64) return launch_blocks<64>(q, k, v, o, ls, pl, bh, sq, sk, bq, bk, causal, sl, st);
+  return launch_blocks<128>(q, k, v, o, ls, pl, bh, sq, sk, bq, bk, causal, sl, st);
 }
 
 const char* repro_cuda_error_string(int code) {

@@ -6,10 +6,11 @@ The torch counterparts of ``repro.kernels.ops.uniform_weights``,
 ``unpack_surface`` and ``flash_attention``. The device decides the path:
 on CUDA the tap sum runs through the ``stencil_sum_blocks`` kernel, the
 gather through the ``gather_rows`` kernel and attention through the
-``flash_attention_fwd`` kernel; on the CPU through their plain versions
+``flash_attention_fwd`` kernel and its gradient through the
+``flash_attention_bwd`` kernels; on the CPU through their plain versions
 (the gather is then ``index_select`` along the last axis). The rule and the
 element selection after the row gather run as torch code on both, and so
-does attention's backward, a recompute through the dense oracle.
+does the sum of each GQA group's kv gradients.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from repro_torch.core.orderings import OrderingSpec
 from repro_torch.core.surfaces import surface_path_indices
 
 from . import ref
-from .flash_attn import flash_attention_fwd
+from .flash_attn import flash_attention_bwd, flash_attention_fwd
 from .sfc_gather import gather_rows
 from .stencil3d import stencil_sum_blocks
 
@@ -221,35 +222,43 @@ def _pick_block(s: int, pref: int) -> int:
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The JAX package's ``custom_vjp`` of ``flash_attention``: the forward
-    launches ``flash_attention_fwd`` and saves (q, k, v); the backward
-    recomputes the dense oracle (``ref.attention_ref``) on them and takes
-    its vector-Jacobian product. The kernel stays forward only, as on the
-    TPU; the recompute is plain torch arithmetic on the tensors' device."""
+    """The JAX package's ``custom_vjp`` of ``flash_attention``, with a
+    kernel on both sides: the forward launches ``flash_attention_fwd`` on
+    the GQA-folded tensors and, where a gradient is wanted, has it write
+    each row's log-sum-exp and saves (q, k, v, o, lse) folded; the
+    backward launches ``flash_attention_bwd`` on them and sums each kv
+    head's gradients over its group. The JAX package recomputes its dense
+    oracle here instead (it has no Pallas backward); the two agree but on
+    rows with no key, where its gradients are NaN and these are 0. CPU
+    tensors run both kernels' plain versions."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, schedule, block_q, block_k):
         B, Hq, Sq, D = q.shape
         qf, kf, vf = _fold_gqa(q, k, v)
-        bq = _pick_block(Sq, block_q)
-        bk = _pick_block(kf.shape[1], block_k)
-        o = flash_attention_fwd(qf, kf, vf, causal=causal, block_q=bq,
-                                block_k=bk, schedule=schedule)
-        ctx.save_for_backward(q, k, v)
-        ctx.causal = causal
+        kw = dict(causal=causal, block_q=_pick_block(Sq, block_q),
+                  block_k=_pick_block(kf.shape[1], block_k))
+        if not any(ctx.needs_input_grad[:3]):
+            return flash_attention_fwd(qf, kf, vf, schedule=schedule,
+                                       **kw).reshape(B, Hq, Sq, D)
+        o, lse = flash_attention_fwd(qf, kf, vf, schedule=schedule,
+                                     return_lse=True, **kw)
+        ctx.save_for_backward(qf, kf, vf, o, lse)
+        ctx.kw, ctx.n_kv = kw, k.shape[1]
         return o.reshape(B, Hq, Sq, D)
 
     @staticmethod
     def backward(ctx, g_out):
-        q, k, v = ctx.saved_tensors
-        with torch.profiler.record_function("flash_attention_bwd_recompute"), \
-                torch.enable_grad():
-            q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
-            B, Hq, Sq, D = q.shape
-            o = ref.attention_ref(*_fold_gqa(q, k, v), causal=ctx.causal)
-            dq, dk, dv = torch.autograd.grad(o.reshape(B, Hq, Sq, D), (q, k, v),
-                                             g_out)
-        return dq, dk, dv, None, None, None, None
+        qf, kf, vf, o, lse = ctx.saved_tensors
+        B, Hq, Sq, D = g_out.shape
+        dq, dk, dv = flash_attention_bwd(qf, kf, vf, o, lse,
+                                         g_out.reshape(qf.shape), **ctx.kw)
+        rep, Sk = Hq // ctx.n_kv, kf.shape[1]
+        dk, dv = (t.reshape(B, ctx.n_kv, rep, Sk, D) for t in (dk, dv))
+        if rep > 1:  # each kv head's gradient: the sum over its group
+            dk, dv = dk.sum(dim=2), dv.sum(dim=2)
+        return (dq.reshape(B, Hq, Sq, D), dk.reshape(B, ctx.n_kv, Sk, D),
+                dv.reshape(B, ctx.n_kv, Sk, D), None, None, None, None)
 
 
 _BATCH_AXES = ("pod", "data")
@@ -340,12 +349,11 @@ def flash_attention(q, k, v, causal: bool = True, schedule: str = "morton",
     """Trainable flash attention. q: (B,Hq,S,D); k,v: (B,Hkv,Sk,D).
 
     The forward folds GQA into the batch axis and runs the SFC-scheduled
-    ``flash_attention_fwd`` (the CUDA kernel on the card, its plain
-    version on the CPU); the backward recomputes through the dense oracle
-    (the JAX package's recompute backward, which keeps the kernel forward
-    only). Blocks are ``block_q`` and ``block_k`` halved until they
-    divide the sequence (each rank's, on a mesh). DTensor inputs run on
-    each rank's batch and heads (:func:`_flash_on_mesh`).
+    ``flash_attention_fwd``, the backward ``flash_attention_bwd`` (the
+    CUDA kernels on the card, their plain versions on the CPU). Blocks
+    are ``block_q`` and ``block_k`` halved until they divide the sequence
+    (each rank's, on a mesh). DTensor inputs run on each rank's batch and
+    heads (:func:`_flash_on_mesh`).
     """
     from torch.distributed.tensor import DTensor
 

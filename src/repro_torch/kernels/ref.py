@@ -21,7 +21,8 @@ from .rules import apply_window_bc, get_rule
 __all__ = ["round_to", "stencil_sum_ref", "gol_rule_ref", "gol3d_step_ref",
            "assemble_halo_ref", "stencil_sum_resident_ref",
            "stencil_fused_ref", "fields_step_ref", "gather_rows_ref",
-           "attention_ref", "flash_attention_ref"]
+           "attention_ref", "flash_attention_ref", "flash_attention_lse_ref",
+           "flash_attention_bwd_ref"]
 
 # float8_e4m3fn has no infinity and 448 is its largest finite value; XLA
 # rounds to nearest even below the midpoint to the next step (480, which
@@ -232,3 +233,51 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         p = torch.softmax(s, dim=-1)
     return round_to(torch.einsum("bqk,bkd->bqd", p, v.float()), q.dtype)
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
+    """f32 (BH, Sq, Sk) scores q·k scaled by 1/sqrt(D) after the product,
+    keys past the causal diagonal (aligned to the end) at -inf."""
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * (1.0 / math.sqrt(q.shape[-1]))
+    if causal:
+        s.masked_fill_(~_causal_mask(q.shape[1], k.shape[1], q.device),
+                       float("-inf"))
+    return s
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                            causal: bool = True) -> torch.Tensor:
+    """The per-row log-sum-exp of the scaled scores that the forward
+    kernels save for the backward: f32 (BH, Sq), natural log. A row with no
+    key gets +inf, the sentinel under which the backward's exp(s - lse) is
+    0 for every key, so that the row's gradients are 0."""
+    lse = torch.logsumexp(_scores(q, k, causal), dim=-1)
+    return lse.masked_fill(lse == float("-inf"), float("inf"))
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                            causal: bool = True):
+    """The plain version of the ``flash_attention_bwd`` kernels: the
+    vector-Jacobian product of :func:`flash_attention_ref` at (q, k, v)
+    against the output's cotangent ``do``, from the forward's output ``o``
+    and log-sum-exp ``lse`` (:func:`flash_attention_lse_ref`), in f32 as
+    the kernels compute it: P = exp(s - lse) from the scaled scores s,
+    dV = Pᵀ dO, dP = dO Vᵀ, Δ = rowsum(dO∘O), dS = P∘(dP - Δ),
+    dQ = dS K / sqrt(D), dK = dSᵀ Q / sqrt(D). Keys past the causal
+    diagonal and rows with no key (lse = +inf) get P = 0, so such a row's
+    gradients are 0 (the dense oracle's are NaN there).
+
+    q, o, do: (BH, Sq, D); k, v: (BH, Sk, D); lse: f32 (BH, Sq). Returns
+    (dq, dk, dv), each rounded once to q's dtype by :func:`round_to`.
+    """
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    p = _scores(q, k, causal).sub_(lse[..., None]).exp_()
+    dv = torch.einsum("bqk,bqd->bkd", p, dof)
+    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    ds = torch.einsum("bqd,bkd->bqk", dof, vf).sub_(delta).mul_(p)
+    del p
+    dq = torch.einsum("bqk,bkd->bqd", ds, kf) * scale
+    dk = torch.einsum("bqk,bqd->bkd", ds, qf) * scale
+    return tuple(round_to(t, q.dtype) for t in (dq, dk, dv))

@@ -1120,6 +1120,65 @@ def _recipe_train() -> dict[str, np.ndarray]:
     return res
 
 
+# ----------------------------------------------- flash attention's backward
+# tests/test_torch_flash_bwd.py: jax.vjp of the JAX package's
+# ops.flash_attention (its Pallas forward in interpret mode, its backward
+# _fa_bwd, the dense oracle's vjp) at (B, Hkv, GQA rep, Sq, Sk, D, causal,
+# dtype), 16-blocks; Sq > Sk with the causal mask leaves rows with no key
+FLASH_BWD_CASES = (
+    (2, 2, 1, 32, 32, 64, True, "float32"),
+    (1, 2, 3, 32, 32, 40, True, "float32"),
+    (1, 1, 3, 32, 48, 128, True, "float32"),
+    (1, 2, 1, 48, 32, 64, True, "float32"),
+    (1, 1, 3, 48, 16, 40, True, "float32"),
+    (2, 1, 3, 32, 48, 64, False, "float32"),
+    (1, 2, 1, 32, 32, 40, False, "float32"),
+    (1, 1, 1, 48, 32, 128, False, "float32"),
+    (1, 2, 3, 32, 32, 64, True, "bfloat16"),
+    (1, 1, 1, 48, 32, 128, True, "bfloat16"),
+    (1, 1, 3, 32, 48, 40, False, "bfloat16"),
+)
+
+
+def flash_bwd_inputs(case) -> tuple[np.ndarray, ...]:
+    """q (B, Hkv·rep, Sq, D), k and v (B, Hkv, Sk, D) and the output's
+    cotangent, f32 normals (each side rounds them to the case's dtype)."""
+    B, hkv, rep, sq, sk, D, causal, _ = case
+    rng = np.random.default_rng(sq + 3 * sk + 7 * D + 11 * rep + int(causal))
+    return (rng.normal(size=(B, hkv * rep, sq, D)).astype(np.float32),
+            rng.normal(size=(B, hkv, sk, D)).astype(np.float32),
+            rng.normal(size=(B, hkv, sk, D)).astype(np.float32),
+            rng.normal(size=(B, hkv * rep, sq, D)).astype(np.float32))
+
+
+def _recipe_flash_bwd() -> dict[str, np.ndarray]:
+    """dq, dk and dv of every FLASH_BWD_CASES case (as f32); where rows
+    have no key, also those of the rows that have one alone (the last Sk
+    rows: the JAX vjp is NaN wherever an empty row reaches)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.kernels import ops
+
+    res = {}
+    for case in FLASH_BWD_CASES:
+        sq, sk, causal = case[3], case[4], case[6]
+        q, k, v, g = (jnp.asarray(a).astype(getattr(jnp, case[-1]))
+                      for a in flash_bwd_inputs(case))
+
+        def grads(q, g):
+            _, vjp = jax.vjp(lambda q, k, v: ops.flash_attention(
+                q, k, v, causal, "morton", 16, 16), q, k, v)
+            return [np.asarray(d.astype(jnp.float32)) for d in vjp(g)]
+
+        for name, d in zip("qkv", grads(q, g)):
+            res[f"{case}/d{name}"] = d
+        if causal and sq > sk:
+            for name, d in zip("qkv", grads(q[:, :, sq - sk:], g[:, :, sq - sk:])):
+                res[f"{case}/keyed/d{name}"] = d
+    return res
+
+
 # ----------------------------------------- the other decoder LMs
 # The dense archs (gemma3-1b, deepseek-coder-33b, phi4-mini-3.8b) with
 # temperature sampling, and the moe archs (MoE and MLA), at their SMOKE
@@ -1824,7 +1883,8 @@ RECIPES = {"core": _recipe_core, "gol3d": _recipe_gol3d, "pack": _recipe_pack,
            "halo": _recipe_halo, "distributed": _recipe_distributed,
            "flash": _recipe_flash, "lm": _recipe_lm, "ckpt": _recipe_ckpt,
            "xrun": _recipe_xrun, "serve_cli": _recipe_serve_cli,
-           "train": _recipe_train, "lm_archs": _recipe_lm_archs,
+           "train": _recipe_train, "flash_bwd": _recipe_flash_bwd,
+           "lm_archs": _recipe_lm_archs,
            "lm_moe": _recipe_lm_moe, "lm_ssm": _recipe_lm_ssm,
            "lm_encdec": _recipe_lm_encdec, "sharding": _recipe_sharding,
            "elastic": _recipe_elastic, "dryrun": _recipe_dryrun}

@@ -277,14 +277,21 @@ def test_wrapper_checks_and_counts_no_launch_on_cpu():
         flash_attention_fwd(empty, empty, empty)
     with pytest.raises(ValueError, match="BH or D"):
         flash_attention_fwd(q, k[:1], v[:1])
-    # a tensor that needs a gradient takes one: the recompute backward
-    # through the oracle, which launches nothing either
+    # a tensor that needs a gradient takes one: the backward's plain
+    # version on the CPU, which launches nothing either, within 1e-6 of the
+    # vector-Jacobian product of the oracle
+    bwd_before = _build.LAUNCHES["flash_attention_bwd"]
     qg = q[None].clone().requires_grad_()
     tops.flash_attention(qg, k[None], v[None], True, "morton", 32, 64).sum().backward()
+    o = ref.flash_attention_ref(q, k, v, causal=True)
+    dq, _, _ = ref.flash_attention_bwd_ref(q, k, v, o, ref.flash_attention_lse_ref(q, k),
+                                           torch.ones_like(q))
+    assert torch.equal(qg.grad[0], dq)
     want = q[None].clone().requires_grad_()
     ref.attention_ref(want[0], k, v, causal=True).sum().backward()
-    assert torch.equal(qg.grad, want.grad)
+    torch.testing.assert_close(qg.grad, want.grad, rtol=1e-6, atol=1e-6)
     assert _build.LAUNCHES["flash_attention_fwd"] == before
+    assert _build.LAUNCHES["flash_attention_bwd"] == bwd_before
 
 
 @pytest.mark.parametrize("dtype,d,block_q,block_k,want", [
