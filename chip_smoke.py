@@ -203,9 +203,10 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    against its plain version (one bf16 unit in the last place plus 1e-5)
    and timed beside it and SDPA. Its readings go into the kernels line
    under ``flash_attention_fwd.training``. Last ``flash_attention_bwd``
-   alone (``bwd_checks``) from the forward kernel's o and lse: the Hopper
-   backward at the step's shape and at BH=96, S=2048, D=128, dq, dk and dv
-   each within a relative L2 error of 1e-2 of the plain version; the
+   alone (``bwd_checks``) from the forward kernel's o (held against the
+   plain forward) and lse: the Hopper backward at the step's shape, at
+   BH=96, S=2048, D=128 and at the train example's BH=60, S=256, D=64, dq,
+   dk and dv each within a relative L2 error of 1e-2 of the plain version; the
    simple backward in f32 and f16 at D=64, bf16 at D=256, float8_e4m3fn at
    D=64 and f32 at D=1152 (S=256, its f32 workspace), f32 within 1e-5 and
    the others within one unit of their type; each timed beside its plain
@@ -236,9 +237,11 @@ Phases, each ending in ``torch.cuda.synchronize()``:
 6. the other LMs (``archs_phase``, the config modules of
    ``ARCH_MODULES``, sizes ``CHIP_*`` in each), one at a time at full
    width with seeded weights, bf16 activations and f32 weights, each freed
-   before the next: gemma3-1b (26 layers), phi4-mini-3.8b (32),
-   deepseek-coder-33b (8 of 62: its f32 weights would take 133 GB),
-   deepseek-moe-16b (8 of 28) and deepseek-v2-lite-16b (27). Each: a
+   before the next, cut in depth where the script's time limit or one
+   card's memory asks it: gemma3-1b (12 of 26 layers), phi4-mini-3.8b
+   (8 of 32), deepseek-coder-33b (8 of 62: its f32 weights would take
+   133 GB), deepseek-moe-16b (8 of 28) and deepseek-v2-lite-16b (8 of
+   27). Each: a
    counted ``Model.prefill`` at B=4, S=2048 (one ``sm90``
    ``flash_attention_fwd`` launch a layer where the attention is GQA
    without a window: phi4, coder and deepseek-moe-16b; none for
@@ -262,9 +265,9 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    drops at the config's capacity factor (1.25), decode against prefill
    at a capacity factor where none drops, and 2 layers (the dense one and
    one MoE layer) in f32 at B=1, S=256 on the card against the same on
-   the CPU (1e-4). mamba2-2.7b (64 layers: no kernel), zamba2-1.2b (38
-   Mamba2 layers; its shared GQA block's 6 applications are its flash
-   launches, BH=128, D=64), whisper-small (12 + 12 layers, frames of
+   the CPU (1e-4). mamba2-2.7b (16 of 64 layers: no kernel), zamba2-1.2b
+   (12 of 38 Mamba2 layers; its shared GQA block's 2 applications there
+   are its flash launches, BH=128, D=64), whisper-small (12 + 12 layers, frames of
    (4, 1500, 768); the decoder's 12 layers launch flash, BH=48, D=64; the
    bidirectional encoder and the cross-attention run plain softmax
    attention) and internvl2-76b (8 of 80 layers: its f32 weights would
@@ -279,7 +282,21 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    its prefill, so 2 layers of its f32 prefill are held card against CPU
    (1e-4 per unit of its logits' std, 1.8). Its readings go into the
    kernels line under
-   ``flash_attention_fwd.archs``.
+   ``flash_attention_fwd.archs``;
+7. the examples' torch twins (``examples_phase``), each
+   ``examples/<name>.py``'s ``main`` loaded by its path and run on the
+   card with the launch counts set to 0 just before and read just after:
+   quickstart (``stencil_sum_blocks`` and ``gather_rows``), the stencil
+   demo (``stencil_step_fused``, ``stencil_sum_blocks``, ``gather_rows``;
+   its part 2 on a local 2×2×2 mesh), the serve demo (no launch) and the
+   train demo ``--full`` for 10 steps, then resumed to 12 from its
+   checkpoint in a temporary directory removed at the end (every flash
+   launch forward and backward of the Hopper design). The gol3d, resident
+   and wave finals and quickstart's packed faces bit-equal to the same
+   functions on the CPU, the serve
+   demo's first new tokens equal to the CPU's, the losses finite; each
+   twin's launches go into its kernels' rows, under ``examples``, and
+   into ``launches``.
 
 It prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
@@ -289,8 +306,10 @@ repository beside it, it exits non-zero at once.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -300,9 +319,11 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
+T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
@@ -375,9 +396,11 @@ TRAIN_BF16_LOSS_RTOL, TRAIN_BF16_GNORM_RTOL = 2e-4, 1e-3
 # version does, summed in another order, and rounds once: f32 within 1e-5
 # relative L2, the narrower types within one unit of their type (finfo.eps)
 BWD_SM90_REL_L2, BWD_F32_REL_L2 = 1e-2, 1e-5
-# the Hopper backward alone: the training step's folded shape (BH, S, D)
-# and phi4-mini-3.8b's and deepseek-coder-33b's head dim
-BWD_SM90_SHAPES = ((60, 4096, 64), (96, 2048, 128))
+# the Hopper backward alone: the training step's folded shape (BH, S, D),
+# phi4-mini-3.8b's and deepseek-coder-33b's head dim, and the train
+# example's --full microbatch (4 sequences x 15 heads, S=256: 2 kv tiles
+# a row)
+BWD_SM90_SHAPES = ((60, 4096, 64), (96, 2048, 128), (60, 256, 64))
 # the simple backward alone: (dtype, BH, S, D); the first is the f32
 # training check's shape, whose kernel it times
 BWD_SIMPLE_CASES = (("float32", 15, 2048, 64), ("float16", 15, 2048, 64),
@@ -399,6 +422,135 @@ CARD_CPU_TOL = 1e-4
 # a checkpoint every CKPT_INTERVAL steps on the checkpointed main path
 CKPT_INTERVAL = 4
 
+# the train twin's two runs: --full for TRAIN_EX_STEPS steps, then resumed
+# from its final checkpoint to TRAIN_EX_RESUME
+TRAIN_EX_STEPS, TRAIN_EX_RESUME = 10, 12
+
+
+def load_example(name: str):
+    """The module ``examples/<name>.py``, loaded by its path (``examples``
+    is not a package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_phase(dev) -> dict:
+    """The four example twins' ``main`` on the card, each with the launch
+    counts set to 0 just before and read just after (counted as a main
+    path), against the same functions on the CPU (the plain versions):
+    quickstart's three gol3d finals and three packed j0 faces (M=32,
+    ``gather_rows``), and the stencil demo's resident
+    (Morton, Hilbert) and wave (S=2, 4) finals bit-equal; the serve demo's
+    tokens (4, 32), finite, each request's first new token equal to the
+    CPU's (the share of equal tokens reported: a later token can follow a
+    near tie), and no launch; the train demo ``--full`` for
+    ``TRAIN_EX_STEPS`` steps, then ``--resume`` to ``TRAIN_EX_RESUME``, in
+    a temporary directory removed at the end: finite losses, the resume at
+    step ``TRAIN_EX_STEPS``, every flash launch forward and backward of
+    the Hopper design. Each twin's own checks raise. Returns, by twin, its
+    launches by kernel."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    cpu = torch.device("cpu")
+    t_phase = time.perf_counter()
+    launches, seconds = {}, {}
+
+    def run(name, argv):
+        """``name``'s main(argv) on the card, counted and timed."""
+        mod = load_example(name)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        out = mod.main(argv)
+        torch.cuda.synchronize()
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+        got = {k: n for k, n in _build.LAUNCHES.items() if n}
+        mine = launches.setdefault(name, {})
+        for k, n in got.items():
+            mine[k] = mine.get(k, 0) + n
+        designs = {what: dict(c) for what, c in (
+            ("fused and resident", _build.STENCIL_DESIGN_LAUNCHES),
+            ("repack", _build.BLOCKS_DESIGN_LAUNCHES),
+            ("flash forward", _build.FLASH_DESIGN_LAUNCHES),
+            ("flash backward", _build.FLASH_BWD_DESIGN_LAUNCHES)) if any(c.values())}
+        log(f"examples {' '.join([name] + argv)}: {time.perf_counter() - t0:.1f} s, "
+            f"launches {got}, by design {designs}")
+        return mod, out
+
+    def same(what, got, want):
+        check(got.shape == want.shape and torch.equal(got.cpu(), want.cpu()),
+              f"{what}: card != CPU")
+
+    qs, got = run("quickstart_torch", [])
+    want = qs.main(["--device", "cpu"])
+    for part in ("finals", "packed"):
+        for spec, w in want[part].items():
+            same(f"quickstart {part} {spec}", got[part][spec], w)
+    check(launches["quickstart_torch"].get("stencil_sum_blocks") == 15
+          and launches["quickstart_torch"].get("gather_rows", 0) > 0,
+          f"quickstart launches {launches['quickstart_torch']}")
+
+    demo, got = run("stencil_halo_demo_torch", [])
+    want = demo.resident_demo(cpu)["finals"]
+    for spec in ("morton", "hilbert"):
+        same(f"stencil demo resident {spec}", got["resident"]["finals"][spec],
+             want[spec])
+    want = demo.wave_demo(cpu)["finals"]
+    for S in (2, 4):
+        same(f"stencil demo wave S={S}", got["wave"]["finals"][S], want[S])
+    ran = launches["stencil_halo_demo_torch"]
+    check(all(ran.get(k, 0) > 0 for k in ("stencil_step_fused",
+                                         "stencil_sum_blocks", "gather_rows")),
+          f"stencil demo launches {ran}")
+
+    _, got = run("serve_lm_torch", [])
+    want = load_example("serve_lm_torch").main(["--device", "cpu"])["tokens"]
+    tok = got["tokens"]
+    check(tuple(tok.shape) == (4, 32) and bool(torch.isfinite(tok.float()).all()),
+          f"serve demo tokens {tuple(tok.shape)}")
+    check(torch.equal(tok[:, 0], want[:, 0]),
+          f"serve demo first tokens {tok[:, 0].tolist()} != CPU {want[:, 0].tolist()}")
+    check(not launches["serve_lm_torch"],
+          f"serve demo launched {launches['serve_lm_torch']}")
+    log(f"examples serve_lm_torch: first new token equal to the CPU's 4/4; "
+        f"tokens equal {int((tok == want).sum())}/{tok.numel()}; "
+        f"{got['tok_per_s']:.1f} tok/s")
+
+    work = tempfile.mkdtemp()
+    try:
+        for argv, first in (
+                (["--full", "--steps", str(TRAIN_EX_STEPS)], 0),
+                (["--full", "--resume", "--steps", str(TRAIN_EX_RESUME)],
+                 TRAIN_EX_STEPS)):
+            _, r = run("train_lm_torch", argv + ["--ckpt-dir", work])
+            end = TRAIN_EX_STEPS if first == 0 else TRAIN_EX_RESUME
+            check(r["steps"] == list(range(first, end)),
+                  f"train demo {argv}: steps {r['steps']}")
+            check(all(math.isfinite(x) for x in r["losses"]),
+                  f"train demo {argv}: losses {r['losses']}")
+            fwd, bwd = dict(_build.FLASH_DESIGN_LAUNCHES), dict(_build.FLASH_BWD_DESIGN_LAUNCHES)
+            check(fwd["sm90"] > 0 and bwd["sm90"] > 0
+                  and fwd["simple"] == 0 == bwd["simple"],
+                  f"train demo {argv}: flash launches by design {fwd}, backward {bwd}")
+            steady = r["step_ms"][1:] or r["step_ms"]
+            log(f"examples train_lm_torch {' '.join(argv)}: steps {r['steps'][0]}.."
+                f"{r['steps'][-1]}, losses {[round(x, 4) for x in r['losses']]}; "
+                f"ms per step {statistics.median(steady):.3f} (median after the "
+                f"first; first {r['step_ms'][0]:.1f}); the steps "
+                f"{sum(r['step_ms']) / 1e3:.1f} s of the run, the rest model "
+                f"set-up, checkpoints and restore")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log("examples: wall seconds " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+        + f"; the phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
@@ -406,7 +558,81 @@ def check(cond: bool, msg: str) -> None:
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """msg on a line of its own, after the seconds since the script began."""
+    print(f"[{time.perf_counter() - T_START:7.1f} s] {msg}", flush=True)
+
+
+def in_background(fn, nice: int | None = None):
+    """Start fn() on a thread of its own (at CPU priority ``nice`` where
+    given: Linux sets a thread's own nice value by its id); returns a
+    function that waits for it and gives fn's result, or raises what fn
+    raised."""
+    out = {}
+
+    def run():
+        try:
+            if nice is not None:
+                with contextlib.suppress(OSError):
+                    os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), nice)
+            out["value"] = fn()
+        except BaseException as e:  # noqa: BLE001 - re-raised by the waiter
+            out["error"] = e
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def result():
+        thread.join()
+        if "error" in out:
+            raise out["error"]
+        return out["value"]
+    return result
+
+
+def device_ms_by_name(prof) -> dict:
+    """ms of device time by kernel (and copy) name in a finished profiler
+    trace, summed from its raw events; ``key_averages`` builds the same
+    from an event tree, which takes seconds per hundred thousand events
+    (a greedy_decode's trace). The traces read here hold no
+    ``record_function`` range, whose device-side span would otherwise
+    count as a kernel where torch does not mark it as a user annotation."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        annotation = getattr(e, "is_user_annotation", None)
+        if e.device_type() == DeviceType.CUDA and not (annotation and annotation()):
+            out[e.name()] = out.get(e.name(), 0.0) + e.duration_ns() / 1e6
+    return {k: v for k, v in out.items() if v > 0}
+
+
+# CPU priorities (nice values) of the work that runs while nvcc builds
+# the kernels: the host arithmetic the checks need right after the build,
+# then the dry run's meta count, which the mesh phase reads minutes later,
+# so that the build keeps the cores it needs and the rest takes those it
+# leaves idle
+HOST_WORK_NICE, CHILD_NICE = 10, 19
+
+
+# every child process run_cli starts, so that an exit on a failure stops
+# those still running
+PROCS: list = []
+
+
+def run_cli(module: str, *args, timeout: float = 600) -> subprocess.CompletedProcess:
+    """``python -m module args`` from the checkout's root with its ``src``
+    on ``PYTHONPATH``: its exit code and output, as ``subprocess.run``
+    gives them (killed after ``timeout`` seconds)."""
+    proc = subprocess.Popen([sys.executable, "-m", module, *args], cwd=ROOT,
+                            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    PROCS.append(proc)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    return subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
 
 
 def kernel_name(line: str) -> str | None:
@@ -522,7 +748,7 @@ def walls_ms(fn, n=5) -> float:
     return statistics.median(walls)
 
 
-def train_phase(dev, flash_err) -> dict:
+def train_phase(dev, flash_err, train_cli) -> dict:
     """The training path at full width: ``make_train_step`` on
     ``smollm-360m`` (all 32 layers, bf16 activations, f32 master weights,
     ``use_flash_kernel``, ``remat=True``) at ``CHIP_TRAIN_*``, weights from
@@ -533,7 +759,8 @@ def train_phase(dev, flash_err) -> dict:
     ``kops.flash_attention_fwd`` and ``_bwd`` (full depth in bf16; 4 layers
     in f32 on the simple designs), ``microbatches=2``, a ``Trainer`` killed
     and resumed at SMOKE size (bit-equal under
-    ``torch.use_deterministic_algorithms``) and the CLI; then times steps
+    ``torch.use_deterministic_algorithms``) and the CLI (its process
+    started earlier: ``train_cli()`` waits for it); then times steps
     and profiles one, holds the forward kernel alone at the step's shape
     against its plain version with ``flash_err``, and runs
     :func:`bwd_checks`. Returns the readings for the ``flash_attention_fwd``
@@ -702,13 +929,9 @@ def train_phase(dev, flash_err) -> dict:
         log(f"train {smoke.name} Trainer, {n_steps} steps killed after the "
             f"checkpoint at {kill} and resumed: params bit-equal to the "
             f"unbroken run (deterministic algorithms on)")
-        # the CLI on the card, as a user runs it
-        r = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-             "smollm-360m", "--smoke", "--steps", "3", "--batch", "2", "--seq",
-             "32", "--device", dev.type, "--ckpt-dir", os.path.join(tmp, "cli")],
-            capture_output=True, text=True, timeout=600, cwd=ROOT,
-            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        # the CLI on the card, as a user runs it (started while the kernels'
+        # checks ran: train_cli waits for it)
+        r = train_cli()
         check(r.returncode == 0 and "[trainer] step 0 loss" in r.stdout,
               f"train CLI rc {r.returncode}: {r.stdout[-2000:]} {r.stderr[-2000:]}")
         log(f"train CLI --smoke --steps 3 --device {dev.type}: "
@@ -837,7 +1060,7 @@ def train_phase(dev, flash_err) -> dict:
         f"{B * S / ms * 1e3:.0f} tokens/s; peak memory {peak / 2**30:.2f} GiB "
         f"above the {base_mem / 2**30:.2f} GiB held before the phase "
         f"({time.perf_counter() - t0:.1f} s)")
-    bwd = bwd_checks(dev)
+    bwd = bwd_checks(dev, flash_err)
     return dict(launches=counts["flash_attention_fwd"],
                 bwd_launches=counts["flash_attention_bwd"], bwd=bwd, training=dict(
         launches_per_step=n_flash, by_design={"sm90": n_flash, "simple": 0},
@@ -851,14 +1074,15 @@ def train_phase(dev, flash_err) -> dict:
         flash_at_train_shape=flash_at_s, profile=shares))
 
 
-def bwd_checks(dev) -> dict:
+def bwd_checks(dev, flash_err) -> dict:
     """``flash_attention_bwd`` alone, on inputs from a seeded generator and
     the forward kernel's o and lse: the Hopper design at
     ``BWD_SM90_SHAPES`` (bf16, causal, 128-blocks) and the simple design at
     ``BWD_SIMPLE_CASES`` (causal, 128-blocks, 64 at D=1152), each launch's
-    design asserted and dq, dk, dv held against the plain version on the
-    same inputs (relative L2 error, ``BWD_*``); each timed with CUDA events
-    beside its plain version, ``aten._scaled_dot_product_flash_attention_
+    design, forward and backward, asserted, o held against the plain
+    forward (``flash_err``) and dq, dk, dv against the plain backward on
+    the same inputs (relative L2 error, ``BWD_*``); each timed with CUDA
+    events beside its plain version, ``aten._scaled_dot_product_flash_attention_
     backward`` where it takes the dtype and head dim (a yardstick the port
     never calls) and the bound of its operations (10·D per visible (q row,
     key) pair) or bytes, whichever is larger. Returns the readings for the
@@ -879,20 +1103,24 @@ def bwd_checks(dev) -> dict:
     def one(dtype, BH, S, D, blk, want_design, tol):
         q, k, v, do = (ref.round_to(torch.randn((BH, S, D), generator=gen, device=dev),
                                     dtype) for _ in range(4))
+        check(flash_design(dtype, D, blk, blk) == want_design,
+              f"flash_attention_bwd {dtype} D={D}: design {flash_design(dtype, D, blk, blk)}")
+        _build.reset_launches()
         o, lse = flash_attention_fwd(q, k, v, causal=True, block_q=blk, block_k=blk,
                                      return_lse=True)
         kw = dict(causal=True, block_q=blk, block_k=blk)
         kernel = lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw)
         plain = lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True)
-        check(flash_design(dtype, D, blk, blk) == want_design,
-              f"flash_attention_bwd {dtype} D={D}: design {flash_design(dtype, D, blk, blk)}")
-        _build.reset_launches()
         got = kernel()
         sync()
-        check(dict(_build.FLASH_BWD_DESIGN_LAUNCHES) == {"sm90": 0, "simple": 0,
-                                                         want_design: 1},
-              f"flash_attention_bwd {dtype} {(BH, S, D)} ran "
+        one_launch = {"sm90": 0, "simple": 0, want_design: 1}
+        check(dict(_build.FLASH_DESIGN_LAUNCHES) == one_launch
+              and dict(_build.FLASH_BWD_DESIGN_LAUNCHES) == one_launch,
+              f"flash {dtype} {(BH, S, D)} ran forward "
+              f"{dict(_build.FLASH_DESIGN_LAUNCHES)}, backward "
               f"{dict(_build.FLASH_BWD_DESIGN_LAUNCHES)}, want {want_design}")
+        fwd_err = flash_err(o, ref.flash_attention_ref(q, k, v, causal=True),
+                            f"{(BH, S, D)} {dtype} causal {blk}-blocks, before the backward")
         want = plain()
         rel = [((a.float() - b.float()).norm() / b.float().norm()).item()
                for a, b in zip(got, want)]
@@ -908,7 +1136,8 @@ def bwd_checks(dev) -> dict:
         b_ops, b_bytes = 1e3 * ops / peak[dtype], 1e3 * nbytes / HBM_BYTES_PER_S
         big = BH * S * S > 5e8
         r = dict(shape=[BH, S, D], dtype=str(dtype).split(".")[-1], design=want_design,
-                 rel_l2=dict(zip(("dq", "dk", "dv"), rel)), max_abs_err=err,
+                 fwd_max_abs_err=fwd_err, rel_l2=dict(zip(("dq", "dk", "dv"), rel)),
+                 max_abs_err=err,
                  ms=events_ms(kernel, reps=3 if big else 5, inner=1 if big else 5),
                  plain_ms=events_ms(plain, reps=3, inner=1),
                  bound_ms=max(b_ops, b_bytes),
@@ -923,9 +1152,9 @@ def bwd_checks(dev) -> dict:
                 lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
                     do4, q4, k4, v4, o4, lse4, cq, ck, mq, mk, 0.0, True, seed, offset))
             del fwd, o4, lse4
-        log(f"{what} causal, blocks {blk}: relative L2 errors of dq, dk, dv against "
-            f"the plain version {', '.join(f'{e:.3g}' for e in rel)} (max |d| "
-            f"{err:.3g}); {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
+        log(f"{what} causal, blocks {blk}: o max |d| {fwd_err:.3g}; relative L2 "
+            f"errors of dq, dk, dv against the plain version "
+            f"{', '.join(f'{e:.3g}' for e in rel)} (max |d| {err:.3g}); {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
             + (f"library flash backward {r['library_ms']:.4f} ms, "
                if r["library_ms"] is not None else "")
             + f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({ops / 1e9:.1f} GFLOP, "
@@ -1051,15 +1280,33 @@ print("DRYRUN_META " + json.dumps({"cells": got, "cli_s": cli_out["s"],
 """
 
 
-def dryrun_check(dev, mesh, work: str) -> dict:
+def start_dryrun_meta(work: str) -> subprocess.Popen:
+    """Start ``DRYRUN_META`` in a process that sees no card
+    (``CUDA_VISIBLE_DEVICES`` empty), its output into files under
+    ``work``: it needs nothing built and no card, so it runs while nvcc
+    builds the kernels, and ``dryrun_check`` reads it."""
+    with open(os.path.join(work, "dryrun_meta.out"), "w") as out, \
+            open(os.path.join(work, "dryrun_meta.err"), "w") as err:
+        child = subprocess.Popen(
+            [sys.executable, "-c", DRYRUN_META, json.dumps(DRYRUN_CELLS),
+             os.path.join(work, "dryrun_cli")],
+            stdout=out, stderr=err, text=True,
+            env={**os.environ, "CUDA_VISIBLE_DEVICES": "",
+                 "PYTHONPATH": str(ROOT / "src")})
+        with contextlib.suppress(OSError):
+            os.setpriority(os.PRIO_PROCESS, child.pid, CHILD_NICE)
+        return child
+
+
+def dryrun_check(dev, mesh, child: subprocess.Popen, work: str) -> dict:
     """The dry run (``repro_torch.launch.dryrun.run_cell``) on the card, on
     the one-rank nccl ``mesh`` (1, 1), against the same count on meta.
 
     Full-width smollm-360m, ``DEFAULT_OPTS`` (flash=0): each cell of
     ``DRYRUN_CELLS`` counted on the card, then run once more outside the
     count (ms, and the allocator's peak over the step against the count's
-    predicted peak); meanwhile a child process with no CUDA
-    (``DRYRUN_META``, ``CUDA_VISIBLE_DEVICES`` empty) counts the same
+    predicted peak); the child process ``child`` (``start_dryrun_meta``,
+    its output under ``work``), which uses no CUDA, counts the same
     cells on meta under a one-rank fake group, whose flops, flops by kind,
     bytes, collective bytes and argument bytes must equal the card's as
     integers, then runs the production CLI (train_4k, the single-pod mesh
@@ -1074,12 +1321,6 @@ def dryrun_check(dev, mesh, work: str) -> dict:
     from repro_torch.launch import dryrun
 
     t0 = time.perf_counter()
-    child = subprocess.Popen(
-        [sys.executable, "-c", DRYRUN_META, json.dumps(DRYRUN_CELLS),
-         os.path.join(work, "dryrun_cli")],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        env={**os.environ, "CUDA_VISIBLE_DEVICES": "",
-             "PYTHONPATH": str(ROOT / "src")})
     try:
         card = {}
         for name, (S, B, mode) in DRYRUN_CELLS.items():
@@ -1105,14 +1346,16 @@ def dryrun_check(dev, mesh, work: str) -> dict:
               f"{2 * n_flash} sm90 (the steady-state step and the one before it)")
         torch.cuda.empty_cache()
         try:
-            text, err = child.communicate(timeout=max(300 - (time.perf_counter() - t0), 30))
+            child.wait(timeout=max(300 - (time.perf_counter() - t0), 30))
         except subprocess.TimeoutExpired:
-            child.kill()
-            text, err = child.communicate()
+            pass
     finally:
         if child.poll() is None:
             child.kill()
-            child.communicate()
+            child.wait()
+    with open(os.path.join(work, "dryrun_meta.out")) as f_out, \
+            open(os.path.join(work, "dryrun_meta.err")) as f_err:
+        text, err = f_out.read(), f_err.read()
     line = next((ln for ln in text.splitlines() if ln.startswith("DRYRUN_META ")), None)
     check(child.returncode == 0 and line is not None,
           f"the meta dry run failed (exit {child.returncode}): {err[-3000:]}")
@@ -1165,7 +1408,7 @@ def dryrun_check(dev, mesh, work: str) -> dict:
         seconds=time.perf_counter() - t0)
 
 
-def mesh_phase(dev, unsharded: dict) -> dict:
+def mesh_phase(dev, unsharded: dict, background: dict) -> dict:
     """The training path over a torch device mesh: ``smollm-360m`` at full
     width (32 layers, bf16 activations, f32 master weights,
     ``use_flash_kernel``, ``remat=True``) at ``CHIP_TRAIN_*`` on a
@@ -1182,7 +1425,12 @@ def mesh_phase(dev, unsharded: dict) -> dict:
     ``unsharded`` (``train_phase``'s readings). Ranks sharing one card:
     nccl refuses a second rank on the device, and gloo, which carries
     plain collectives of CUDA tensors, crashes in DTensor's functional
-    collectives, so the elastic CLI's 8 ranks are not run here."""
+    collectives, so the elastic CLI's 8 ranks are not run here (that
+    reading, ``shared_card_backends``, was started beside the kernels'
+    checks, and the dry run's meta count while the kernels built:
+    ``background["shared"]`` waits for the first,
+    ``background["dryrun_meta"]`` is the second's process, writing under
+    ``background["work"]``)."""
     import socket
 
     import torch
@@ -1323,7 +1571,9 @@ def mesh_phase(dev, unsharded: dict) -> dict:
             times.append(1e3 * (time.perf_counter() - t1))
         ms = statistics.median(times)
         peak = torch.cuda.max_memory_allocated() - base_mem
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # device activity only: a trace of the host's ops too takes the
+        # profiler longer to aggregate than the step takes to run
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t1 = time.perf_counter()
             params, state, m = step(params, state, batches[0])
             float(m["loss"])
@@ -1350,9 +1600,9 @@ def mesh_phase(dev, unsharded: dict) -> dict:
         # model, its state and their gradients freed first)
         del model, params, state, tree, sh, step, m
         torch.cuda.empty_cache()
-        dry = dryrun_check(dev, mesh, tmp)
+        dry = dryrun_check(dev, mesh, background["dryrun_meta"], background["work"])
         launches += dry["launches"]
-        shared = shared_card_backends()
+        shared = background["shared"]()
         log(f"mesh: two ranks sharing the card, a DTensor all-gather: "
             + "; ".join(f"{b} exit {r['exit_codes']} ({r['last_line'][:160]})"
                         for b, r in shared.items())
@@ -1508,7 +1758,7 @@ def archs_phase(dev, flash_err) -> dict:
         # decode: 4 requests through greedy_decode, then decode's logits at
         # the last prompt position against the prefill's on the prompts, in
         # bf16 (reported: the two round at other places, and over 26 layers
-        # and 262,144 logits gemma3-1b's sit 0.104 apart, past smollm's
+        # and 262,144 logits gemma3-1b's sat 0.104 apart, past smollm's
         # LM_LOGIT_TOL) and in f32 activations (held to LM_F32_LOGIT_TOL:
         # the same arithmetic summed in other orders). A MoE prefill of 16
         # tokens has 2 places an expert at the config's capacity factor, so
@@ -1891,7 +2141,7 @@ def archs_phase(dev, flash_err) -> dict:
         kernels (empty when the trace holds no device time)."""
         fn()
         sync()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t1 = time.perf_counter()
             fn()
             sync()
@@ -1942,6 +2192,7 @@ def main() -> int:
                                   extended_neighbor_table_device, mixed,
                                   neighbor_table_device, store_spec)
     from repro_torch.configs.registry import ShapeSpec, concrete_batch
+    from repro_torch.core.layout import _perm_device
     from repro_torch.core.surfaces import run_stats, surface_path_indices
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import ops as kops
@@ -2097,11 +2348,77 @@ def main() -> int:
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    # What needs no kernel runs while nvcc builds them: the dry run's count
+    # on meta (a process that sees no card, read by the mesh phase), and
+    # the row plans of the M=256 deep faces that the gather_rows check and
+    # timings read, the orderings' permutations and the pack timings'
+    # faces (host arithmetic, memoised), each on a thread of its own.
+    bg_work = tempfile.mkdtemp(prefix="chip_smoke_bg_")
+    background = {"work": bg_work, "dryrun_meta": start_dryrun_meta(bg_work)}
+
+    def cleanup():
+        for child in [background["dryrun_meta"], *PROCS]:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        if "shared" in background:
+            with contextlib.suppress(BaseException):
+                background["shared"]()
+        shutil.rmtree(bg_work, ignore_errors=True)
+
+    atexit.register(cleanup)
     t0 = time.perf_counter()
-    reports = _build.build()
+    built = in_background(_build.build)
+
+    def orderings_perms():
+        """The cube <-> path permutations of the main paths' orderings
+        (host arithmetic, memoised on the host and the card by
+        core.layout; numpy lets go of the GIL, so this thread and the
+        face rows below overlap)."""
+        for spec in CHIP_ORDERINGS:
+            for inverse in (False, True):
+                _perm_device(spec, M_MAIN, inverse, dev)
+        for inverse in (False, True):
+            _perm_device(CHIP_REPACK.ordering, CHIP_REPACK.M, inverse, dev)
+
+    perms = in_background(orderings_perms, nice=HOST_WORK_NICE)
+    M_D, T_D = CHIP_DISTRIBUTED.M, CHIP_DISTRIBUTED.block_T
+
+    @functools.cache
+    def face_rows(kind, h, face):
+        """(path indices, row plan on the card) of one deep face, cached:
+        the gather_rows check and the gather timings read them."""
+        hspec = store_spec(kind, T_D)
+        idx = surface_path_indices(hspec, M_D, h, face)
+        rows, _ = kops._row_plan(idx, LINE, (hspec, M_D, h, face))
+        return idx, torch.from_numpy(np.array(rows)).to(dev)
+
+    def all_face_rows():
+        for kind in KINDS:
+            for h in (1, 2, 4):
+                for face in FACES:
+                    face_rows(kind, h, face)
+
+    def pack_faces():
+        """The faces the pack timings read, each ordering's of widths 1
+        and 4 on the M=256 cube, with their row plans (memoised)."""
+        for spec in CHIP_ORDERINGS:
+            for g_p in (1, 4):
+                for face in FACES:
+                    kops._row_plan(surface_path_indices(spec, M_D, g_p, face), LINE,
+                                   (spec, M_D, g_p, face))
+
+    packs = in_background(pack_faces, nice=HOST_WORK_NICE)
+    in_background(all_face_rows, nice=HOST_WORK_NICE)()
+    perms()
+    packs()
+    t_rows = time.perf_counter() - t0
+    reports = built()
     log(f"build: {time.perf_counter() - t0:.2f} s, in parallel: "
         + ", ".join(f"{name} {sec:.1f} s" for name, (sec, _) in reports.items())
-        + f" (flags {' '.join(_build.NVCC_FLAGS)})")
+        + f" (flags {' '.join(_build.NVCC_FLAGS)}); meanwhile the deep faces' "
+        f"row plans at M={M_D}, the orderings' permutations and the pack "
+        f"timings' faces ({t_rows:.1f} s)")
     for name, (_, text) in reports.items():
         for line in text.splitlines():
             entry = kernel_name(line)
@@ -2150,6 +2467,40 @@ def main() -> int:
           f"{sorted(set(re.findall(r'[A-Z]*(?:BLK|BULK|TMA)[A-Z.0-9]*', sass)))}")
     log(f"stencil3d_blocks_sm90 SASS: {n_kern} kernels, {n_ffma} FFMA, {n_fmul} "
         f"FMUL, {n_blk} UBLKCP (bulk copy) instructions")
+
+    # The CLIs a user runs, each a process of its own on the card, start
+    # now and run beside the checks below, which time nothing; the slices
+    # that report them wait for them: the faults CLI killed at step 6 and
+    # resumed by a second process, the elastic CLI's reshard, the serve
+    # CLI twice and the train CLI; and the shared-card backends' reading
+    # (two processes a backend, a moment of the card each).
+    background["shared"] = in_background(shared_card_backends)
+    K_C, IV = CHIP_MAIN_STEPS, CKPT_INTERVAL
+    cli_dir = os.path.join(bg_work, "cli")
+    d5 = os.path.join(cli_dir, "run5")
+    fault_args = ("--M", str(M_MAIN), "--T", str(T_MAIN), "--S", str(S_MAIN),
+                  "--steps", str(K_C), "--interval", str(IV), "--ckpt-dir", d5)
+
+    def faults_cli():
+        r = run_cli("repro_torch.launch.faults", *fault_args, "--kill-at", "6",
+                    "--kill-mode", "exit")
+        return r, CK.latest_step(d5), run_cli("repro_torch.launch.faults", *fault_args)
+
+    background["faults"] = in_background(faults_cli)
+    background["elastic"] = in_background(lambda: run_cli(
+        "repro_torch.launch.elastic", "--stencil", "--from-mesh", "2,2,2",
+        "--to-mesh", "1,1,1", "--local-M", str(M_MAIN // 2),
+        "--ckpt-dir", os.path.join(cli_dir, "run6"), timeout=900))
+    # as given (a 100 ms deadline), then with a deadline the M=256
+    # queries can meet and room for all 12
+    serve_extras = ((), ("--deadline-ms", "2000", "--max-in-flight", "12"))
+    background["serve"] = in_background(lambda: [run_cli(
+        "repro_torch.launch.serve", "--stencil", "--M", str(CHIP_ROI.M), "--faults",
+        *extra) for extra in serve_extras])
+    background["train_cli"] = in_background(lambda: run_cli(
+        "repro_torch.launch.train", "--arch", "smollm-360m", "--smoke", "--steps",
+        "3", "--batch", "2", "--seq", "32", "--device", dev.type, "--ckpt-dir",
+        os.path.join(bg_work, "train_cli")))
 
     # ------------------------------------------- kernels vs plain, on the card
     t0 = time.perf_counter()
@@ -2440,15 +2791,8 @@ def main() -> int:
     # gather_rows on the deep faces of the M=256, T=8 block store: the rows
     # covering each face, as the exchange's packs fetch them (line 64).
     t0 = time.perf_counter()
-    M_D, T_D = CHIP_DISTRIBUTED.M, CHIP_DISTRIBUTED.block_T
     cube_d = cube_for("jacobi", M_D)[0]
     n_cmp = 0
-
-    def face_rows(kind, h, face):
-        hspec = store_spec(kind, T_D)
-        idx = surface_path_indices(hspec, M_D, h, face)
-        rows, _ = kops._row_plan(idx, LINE, (hspec, M_D, h, face))
-        return idx, torch.from_numpy(np.array(rows)).to(dev)
 
     def gather_check(src, rows, what):
         got = gather_rows(src, rows)
@@ -2801,17 +3145,11 @@ def main() -> int:
             return e
         raise RuntimeError(f"{exc.__name__} was not raised")
 
-    def cli(module, *args, timeout=600):
-        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-        return subprocess.run([sys.executable, "-m", module, *args], env=env,
-                              capture_output=True, text=True, timeout=timeout)
-
     def cli_launches(text, prefix):
         line = next(ln for ln in text.splitlines() if ln.startswith(prefix))
         return json.loads(line[len(prefix):])
 
     t1 = time.perf_counter()
-    K_C, IV = CHIP_MAIN_STEPS, CKPT_INTERVAL
     state0 = initial_state("gol", M_MAIN, seed=0)
     ck_app = Gol3d(CHIP_MAIN)
     ck_app.state_path = apply_ordering(torch.from_numpy(state0).to(dev),
@@ -2881,33 +3219,27 @@ def main() -> int:
             f"{err.step}, last good step {err.last_good_step}; launches fused "
             f"{counts['stencil_step_fused']}")
 
-        d5 = os.path.join(work, "run5")
-        args = ("--M", str(M_MAIN), "--T", str(T_MAIN), "--S", str(S_MAIN),
-                "--steps", str(K_C), "--interval", str(IV), "--ckpt-dir", d5)
-        r = cli("repro_torch.launch.faults", *args, "--kill-at", "6",
-                "--kill-mode", "exit")
-        check(r.returncode == KILL_EXIT and CK.latest_step(d5) == 4,
-              f"faults CLI kill: exit {r.returncode}\n{r.stdout}\n{r.stderr[-3000:]}")
-        r2 = cli("repro_torch.launch.faults", *args)
+        # the CLIs, started while the kernels' checks ran
+        r, latest, r2 = background["faults"]()
+        check(r.returncode == KILL_EXIT and latest == 4,
+              f"faults CLI kill: exit {r.returncode}, newest checkpoint {latest}\n"
+              f"{r.stdout}\n{r.stderr[-3000:]}")
         done = [ln for ln in r2.stdout.splitlines() if ln.startswith("FAULTS_DONE")]
         sub = cli_launches(r2.stdout, "FAULTS_LAUNCHES ") if r2.returncode == 0 else {}
         check(r2.returncode == 0 and done == [f"FAULTS_DONE step={K_C} crc={crc1:#010x}"]
               and sub.get("stencil_step_fused") == fused_launches(ck_pipe, chunks[1:]),
               f"faults CLI resume: exit {r2.returncode}\n{r2.stdout}\n{r2.stderr[-3000:]}")
-        shutil.rmtree(d5)
         log(f"slice 5, faults CLI: killed with exit {r.returncode}, resumed by a "
             f"second process: {done[0]} (run 1's crc), its launches {sub}")
 
-        r = cli("repro_torch.launch.elastic", "--stencil", "--from-mesh", "2,2,2",
-                "--to-mesh", "1,1,1", "--local-M", str(M_MAIN // 2),
-                "--ckpt-dir", os.path.join(work, "run6"), timeout=900)
+        r = background["elastic"]()
         sub = cli_launches(r.stdout, "[elastic] launches ") if r.returncode == 0 else {}
         check(r.returncode == 0 and "bit-exact vs uninterrupted run" in r.stdout
               and sub.get("gather_rows", 0) > 0 and sub.get("stencil_step_fused", 0) > 0,
               f"elastic CLI: exit {r.returncode}\n{r.stdout}\n{r.stderr[-3000:]}")
         log(f"slice 6, elastic CLI 2x2x2 (local {M_MAIN // 2}) -> 1x1x1: "
             + "; ".join(ln for ln in r.stdout.splitlines() if ln.startswith("[elastic]")))
-        shutil.rmtree(os.path.join(work, "run6"), ignore_errors=True)
+        shutil.rmtree(cli_dir, ignore_errors=True)
 
         # Where a checkpoint's time goes, on the host's clock (each part alone,
         # median of 3): the checkpointed run against the plain run in turns
@@ -3224,11 +3556,9 @@ def main() -> int:
         f"{1e3 * x.elapsed_s:.1f} ms" for i, x in enumerate(batch)))
     del svc, hosts, outcomes, batch
 
-    # the CLI, as a user runs it on the card: as given (a 100 ms deadline),
-    # then with a deadline the M=256 queries can meet and room for all 12
-    for extra in ((), ("--deadline-ms", "2000", "--max-in-flight", "12")):
-        r = cli("repro_torch.launch.serve", "--stencil", "--M", str(M_Q), "--faults",
-                *extra)
+    # the CLI, as a user runs it on the card (started while the kernels'
+    # checks ran): as given, then with a deadline the queries can meet
+    for extra, r in zip(serve_extras, background["serve"]()):
         sub = cli_launches(r.stdout, "SERVE_LAUNCHES ") if r.returncode == 0 else {}
         lines = r.stdout.splitlines()
         check(r.returncode == 0 and "SERVE_DONE" in lines
@@ -3954,18 +4284,18 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     def profiled(fn, what, top=8):
+        """One call of fn under the profiler, device activity only (a
+        trace of the host's ops too took 80 s to aggregate over a
+        greedy_decode's 47 steps), read by ``device_ms_by_name``: wall,
+        device busy, the top kernels."""
         fn()
         sync()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t1 = time.perf_counter()
             fn()
             sync()
             wall_ms = 1e3 * (time.perf_counter() - t1)
-        by_name = {e.key: e.self_device_time_total / 1e3
-                   for e in prof.key_averages()
-                   if str(e.device_type).endswith("CUDA")
-                   and e.self_device_time_total > 0}
+        by_name = device_ms_by_name(prof)
         if not by_name:
             log(f"profile {what}: the profiler recorded no device time "
                 "(not measured)")
@@ -4000,7 +4330,7 @@ def main() -> int:
     # the training path (its own launches counted, added to the kernel's)
     del lm
     torch.cuda.empty_cache()
-    tr = train_phase(dev, flash_err)
+    tr = train_phase(dev, flash_err, background["train_cli"])
     flash_row = next(k for k in kernels if k["name"] == "flash_attention_fwd")
     flash_row["launches"] += tr["launches"]
     flash_row["training"] = tr["training"]
@@ -4012,7 +4342,7 @@ def main() -> int:
 
     # the training path over a device mesh (its launches counted, added)
     torch.cuda.empty_cache()
-    me = mesh_phase(dev, tr["training"])
+    me = mesh_phase(dev, tr["training"], background)
     flash_row["launches"] += me["launches"]
     bwd_row["launches"] += me["bwd_launches"]
     flash_row["mesh"] = me["mesh"]
@@ -4022,6 +4352,14 @@ def main() -> int:
     ar = archs_phase(dev, flash_err)
     flash_row["launches"] += ar["launches"]
     flash_row["archs"] = ar["archs"]
+
+    # the examples' torch twins (their launches counted, added)
+    torch.cuda.empty_cache()
+    for twin, counts in examples_phase(dev).items():
+        for name, n in counts.items():
+            row = next(k for k in kernels if k["name"] == name)
+            row["launches"] += n
+            row.setdefault("examples", {})[twin] = n
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -28,16 +28,17 @@ SMOKE = ModelConfig(
     activation_dtype="float32",
 )
 
-# The sizes chip_smoke.py serves at full width and full depth: all 38
-# Mamba2 layers and the shared block's 6 applications (4.7 GB of f32
-# weights); the prefill_32k cell cut to B=4 prompts of S=2048 and a decode
+# The sizes chip_smoke.py serves at full width, cut to 12 of the 38
+# Mamba2 layers and so 2 of the shared block's 6 applications (the
+# script's time limit, shared with the other archs, caps the host-bound
+# decode loops); the prefill_32k cell cut to B=4 prompts of S=2048 and a decode
 # of 4 requests of 16-token prompts and 32 new tokens, as for
 # smollm-360m. Decode against prefill runs CHIP_CHECK_SEQ teacher-forced
 # steps (a multiple of the 256-token chunk); one Mamba2 layer runs on the
 # card and the CPU at B=1, S=CHIP_CPU_SEQ. long_500k: one decode step at
 # B=1 with a bf16 cache of CHIP_LONG_LEN positions at its last position
-# (the shared block's K/V: 6·524288·32·64·2·2 B = 25.8 GB).
-CHIP_LAYERS = 38
+# (the shared block's K/V: 2·524288·32·64·2·2 B = 8.6 GB at 12 layers).
+CHIP_LAYERS = 12
 CHIP_PREFILL_BATCH, CHIP_PREFILL_SEQ = 4, 2048
 CHIP_DECODE_BATCH, CHIP_PROMPT_LEN, CHIP_NEW_TOKENS = 4, 16, 32
 CHIP_CHECK_SEQ = 256

@@ -86,15 +86,26 @@ class Gol3d:
     def block_kind(self) -> str:
         return stencil_block_kind(self.cfg.ordering)
 
-    def run(self, n_steps: int) -> torch.Tensor:
-        """Repack mode: every step rebuilds the halo-extended blocks."""
+    def step_fn(self):
+        """``step(state_path) -> state_path``: one repack-mode update of a
+        path-ordered state (the JAX package's jitted closure; torch runs it
+        eagerly). Leaves this app's state as it is."""
         cfg, kind = self.cfg, self.block_kind
-        s = self.state_path
-        for _ in range(n_steps):
-            cube = undo_ordering(s, cfg.ordering, cfg.M)
+
+        def step(state_path: torch.Tensor) -> torch.Tensor:
+            cube = undo_ordering(state_path, cfg.ordering, cfg.M)
             nxt = ops.gol3d_step(cube, g=cfg.g, T=cfg.block_T, block_kind=kind,
                                  bc=cfg.bc)
-            s = apply_ordering(nxt, cfg.ordering)
+            return apply_ordering(nxt, cfg.ordering)
+
+        return step
+
+    def run(self, n_steps: int) -> torch.Tensor:
+        """Repack mode: every step rebuilds the halo-extended blocks."""
+        step = self.step_fn()
+        s = self.state_path
+        for _ in range(n_steps):
+            s = step(s)
         self.state_path = s
         return s
 

@@ -472,6 +472,15 @@ class DistributedPipeline:
         px, py, pz = self.procs
         return (px * self.M, py * self.M, pz * self.M)
 
+    @property
+    def global_M(self) -> int:
+        """The global cube edge; a non-cubic mesh has none and raises."""
+        px, py, pz = self.procs
+        if not px == py == pz:
+            raise ValueError(f"global_M needs a cubic mesh, got {self.procs}; "
+                             "use global_shape")
+        return px * self.M
+
     # -- autotuner ---------------------------------------------------------
     @classmethod
     def plan(cls, mesh: StencilMesh, spec: OrderingSpec, M: int, g: int = 1,

@@ -379,11 +379,89 @@ def _recipe_gol3d() -> dict[str, np.ndarray]:
                           block_T=GOL_T, substeps=GOL_S, seed=GOL_SEED)
         app = Gol3d(cfg)
         res[f"state0/{kind}"] = np.asarray(app.state_path)
+        res[f"step_fn/{kind}"] = np.asarray(app.step_fn()(app.state_path))
         res[f"reference/{kind}"] = np.asarray(app.reference_run(GOL_K))
         res[f"resident/{kind}"] = np.asarray(app.run_resident(GOL_K))
         pipe = ResidentPipeline(M=GOL_M, T=GOL_T, g=1, kind=kind, S=GOL_S,
                                 rule="wave", bc=NEUMANN0)
         res[f"wave/{kind}"] = np.asarray(pipe.run(jnp.asarray(wave_fields()), GOL_K))
+    return res
+
+
+# --------------------------------------------- the examples' twins
+# examples/*_torch.py against the JAX examples' own calls: the stencil
+# demo's resident and wave parts at EX_STEPS steps (its own are 10 and
+# 8), the serve demo as it is. The byte and host models need no child.
+EX_STEPS = 5
+EX_SERVE_BATCH, EX_SERVE_PROMPT, EX_SERVE_NEW = 4, 16, 32
+
+
+def load_example(name: str):
+    """The module ``examples/<name>.py``, loaded by its path (``examples``
+    is not a package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", REPO / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def serve_example_config(pkg: str):
+    """examples/serve_lm.py's reduced gemma3-family config, from ``pkg``:
+    the keywords of that file's one ``dataclasses.replace`` call, read
+    from its source, applied to ``pkg``'s gemma3-1b config."""
+    import ast
+    import dataclasses
+    import importlib
+
+    tree = ast.parse((REPO / "examples" / "serve_lm.py").read_text())
+    call, = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+             and isinstance(n.func, ast.Attribute) and n.func.attr == "replace"]
+    fields = {kw.arg: ast.literal_eval(kw.value) for kw in call.keywords}
+    base = importlib.import_module(f"{pkg}.configs.gemma3_1b").CONFIG
+    return dataclasses.replace(base, **fields)
+
+
+def _recipe_examples() -> dict[str, np.ndarray]:
+    import jax
+    import jax.numpy as jnp
+
+    from repro.core import HILBERT, MORTON, ROW_MAJOR
+    from repro.models import build_model
+    from repro.serve import greedy_decode
+    from repro.stencil import Gol3d, Gol3dConfig, ResidentPipeline
+
+    res = {}
+    for spec in (ROW_MAJOR, MORTON, HILBERT):  # quickstart.py part 3
+        app = Gol3d(Gol3dConfig(M=16, g=1, ordering=spec, block_T=4, seed=1))
+        app.run(5)
+        res[f"quickstart/{spec.name}"] = np.asarray(app.cube)
+    for spec in (MORTON, HILBERT):  # stencil_halo_demo.py's repack steps
+        app = Gol3d(Gol3dConfig(M=32, g=1, ordering=spec, block_T=8,
+                                substeps=4))
+        step, s = app.step_fn(), app.state_path
+        for _ in range(EX_STEPS):
+            s = step(s)
+        res[f"resident/{spec.name}"] = np.asarray(s)
+    rng = np.random.default_rng(0)  # stencil_halo_demo.py's wave fields
+    fields = jnp.asarray(rng.normal(size=(2, 32, 32, 32)).astype(np.float32))
+    for S in (2, 4):
+        pipe = ResidentPipeline(M=32, T=8, g=1, kind="hilbert", S=S,
+                                rule="wave")
+        res[f"wave/{S}"] = np.asarray(
+            pipe.to_cube(pipe.run_fn(EX_STEPS)(pipe.to_blocks(fields))))
+    cfg = serve_example_config("repro")
+    m = build_model(cfg)
+    params = m.init(jax.random.PRNGKey(0))
+    put_tree(res, "serve/params", params)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, (EX_SERVE_BATCH, EX_SERVE_PROMPT), np.int32)
+    res["serve/prompts"] = prompts
+    res["serve/tokens"] = np.asarray(greedy_decode(
+        m, params, jnp.asarray(prompts), EX_SERVE_NEW,
+        EX_SERVE_PROMPT + EX_SERVE_NEW + 1))
     return res
 
 
@@ -1887,7 +1965,8 @@ RECIPES = {"core": _recipe_core, "gol3d": _recipe_gol3d, "pack": _recipe_pack,
            "lm_archs": _recipe_lm_archs,
            "lm_moe": _recipe_lm_moe, "lm_ssm": _recipe_lm_ssm,
            "lm_encdec": _recipe_lm_encdec, "sharding": _recipe_sharding,
-           "elastic": _recipe_elastic, "dryrun": _recipe_dryrun}
+           "elastic": _recipe_elastic, "dryrun": _recipe_dryrun,
+           "examples": _recipe_examples}
 
 
 if __name__ == "__main__":

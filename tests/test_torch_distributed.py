@@ -51,6 +51,29 @@ def test_run_cube_matches_jax_package(case, ref_dist):
     assert torch.equal(cube, torch.from_numpy(dist_cube(rule, shape)))
 
 
+@pytest.mark.parametrize("shape", [(1, 1, 1), (2, 2, 2), (4, 2, 1)])
+def test_global_M_as_the_jax_package(shape):
+    """``global_M`` is the cube edge on a cubic mesh and refuses a
+    non-cubic one, as the JAX package's does (its mesh stands in by its
+    axis sizes alone)."""
+    import types
+
+    from repro.core.orderings import MORTON as JMORTON
+    from repro.stencil.pipeline import DistributedPipeline as JPipeline
+
+    mine = _pipe(shape, "morton", "gol", "periodic", 1)
+    theirs = JPipeline(mesh=types.SimpleNamespace(shape=dict(zip(
+        ("dx", "dy", "dz"), shape))), spec=JMORTON, M=DIST_M, T=DIST_T)
+    assert mine.global_shape == theirs.global_shape
+    if len(set(shape)) == 1:
+        assert mine.global_M == theirs.global_M == shape[0] * DIST_M
+    else:
+        with pytest.raises(ValueError, match="cubic"):
+            mine.global_M
+        with pytest.raises(AssertionError):
+            theirs.global_M
+
+
 @pytest.mark.parametrize("kind", KINDS)
 def test_gol3d_run_distributed_equals_resident_and_reference(kind):
     cfg = Gol3dConfig(M=16, g=1, ordering=ordering_from_name(kind), block_T=4,

@@ -51,6 +51,19 @@ def test_gol3d_matches_jax_package(kind, ref_gol3d):
 
 
 @pytest.mark.parametrize("kind", KINDS)
+def test_step_fn_matches_jax_package(kind, ref_gol3d):
+    """One repack step through ``step_fn`` is bit-equal to the JAX
+    package's, and leaves the app's state as it was; ``run`` is that step
+    in a loop."""
+    app = Gol3d(_cfg(kind))
+    state0 = app.state_path.clone()
+    got = app.step_fn()(app.state_path)
+    assert torch.equal(got, torch.from_numpy(ref_gol3d[f"step_fn/{kind}"]))
+    assert torch.equal(app.state_path, state0)
+    assert torch.equal(app.run(1), got)
+
+
+@pytest.mark.parametrize("kind", KINDS)
 def test_wave_pipeline_matches_jax_package(kind, ref_gol3d):
     pipe = ResidentPipeline(M=GOL_M, T=GOL_T, g=1, kind=kind, S=GOL_S,
                             rule="wave", bc=NEUMANN0, device="cpu")

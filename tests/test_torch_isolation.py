@@ -121,6 +121,45 @@ assert not bad, bad
     assert proc.returncode == 0, proc.stderr[-3000:]
 
 
+# each example twin with small arguments on the CPU (train: into the
+# test's tmp dir, appended below); the stencil demo, which has no size
+# options, runs its three parts at one step each
+TWIN_ARGS = {"quickstart_torch": [], "stencil_halo_demo_torch": [],
+             "serve_lm_torch": ["--new-tokens", "2"],
+             "train_lm_torch": ["--steps", "1", "--batch", "2", "--seq", "16"]}
+STENCIL_PARTS = """
+cpu = __import__("torch").device("cpu")
+for part in ("resident_demo", "wave_demo", "distributed_demo"):
+    mod[part](cpu, steps=1)
+"""
+
+
+@pytest.mark.parametrize("name", sorted(TWIN_ARGS))
+def test_example_twins_pull_in_no_jax(name, tmp_path):
+    """``examples/<name>.py --device cpu`` runs as a script and loads no
+    JAX, JAX package, ml_dtypes or benchmarks module."""
+    args = ["--device", "cpu"] + TWIN_ARGS[name]
+    if name == "train_lm_torch":
+        args += ["--ckpt-dir", str(tmp_path / "ck")]
+    path = str(REPO / "examples" / (name + ".py"))
+    run = (f"mod = runpy.run_path({path!r})" + STENCIL_PARTS
+           if name == "stencil_halo_demo_torch"
+           else f"runpy.run_path({path!r}, run_name='__main__')")
+    code = f"""
+import runpy, sys
+sys.argv = {[name + ".py"] + args!r}
+{run}
+bad = [m for m in sys.modules if m in ('jax', 'repro', 'ml_dtypes', 'benchmarks')
+       or m.startswith(('jax.', 'repro.', 'ml_dtypes.', 'benchmarks.'))]
+assert not bad, bad
+"""
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": str(REPO / "src"),
+                               "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+
+
 def test_sources_name_no_jax_import():
     pat = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.]|import\s+repro(\s|\.|$)"
                      r"|from\s+repro(\s|\.)|import\s+ml_dtypes|from\s+ml_dtypes"
