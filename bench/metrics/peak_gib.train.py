@@ -1,0 +1,6 @@
+"""The allocator's peak over the window (``torch.cuda.max_memory_allocated``
+after a reset at its start), in GiB."""
+
+
+def read(run):
+    return run.peak_window_bytes / 2 ** 30 if run.peak_window_bytes else None
