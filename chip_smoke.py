@@ -593,9 +593,9 @@ def device_ms_by_name(prof) -> dict:
     """ms of device time by kernel (and copy) name in a finished profiler
     trace, summed from its raw events; ``key_averages`` builds the same
     from an event tree, which takes seconds per hundred thousand events
-    (a greedy_decode's trace). The traces read here hold no
-    ``record_function`` range, whose device-side span would otherwise
-    count as a kernel where torch does not mark it as a user annotation."""
+    (a greedy_decode's trace). The device-side span of a
+    ``record_function`` range (the program's spans, ``repro_torch.trace``)
+    is a user annotation, not a kernel, and is left out."""
     from torch.autograd import DeviceType
 
     out = {}
@@ -965,13 +965,12 @@ def train_phase(dev, flash_err, train_cli) -> dict:
         float(m["loss"])
         sync()
         wall = 1e3 * (time.perf_counter() - t1)
-    # the step's record_function ranges also appear on the device's
+    # the program's spans (repro_torch.trace) also appear on the device's
     # timeline (as annotations spanning their kernels): kernels only here
-    ranges = ("loss_and_grads", "adamw_update")
     by_name = {}
     for e in prof.key_averages():
         if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0 \
-                and e.key not in ranges:
+                and not e.is_user_annotation:
             by_name[e.key] = e.self_device_time_total / 1e3
 
     def kernels_under(ev):
@@ -1581,7 +1580,7 @@ def mesh_phase(dev, unsharded: dict, background: dict) -> dict:
             wall = 1e3 * (time.perf_counter() - t1)
         by_name = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
                    if str(e.device_type).endswith("CUDA")
-                   and e.key not in ("loss_and_grads", "adamw_update")}
+                   and not e.is_user_annotation}
         busy = sum(by_name.values())
         busy_share = busy / wall if busy else None
         flash_ms = sum(v for k, v in by_name.items() if "flash_fwd" in k) / n_flash
@@ -2147,7 +2146,8 @@ def archs_phase(dev, flash_err) -> dict:
             sync()
             wall = 1e3 * (time.perf_counter() - t1)
         by_name = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
-                   if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0}
+                   if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0
+                   and not e.is_user_annotation}
         if not by_name:
             return {}
         flash = sum(v for k, v in by_name.items() if "flash_fwd" in k)
@@ -2286,7 +2286,8 @@ def main() -> int:
                     fn()
                 sync()
             total = sum(e.self_device_time_total for e in prof.key_averages()
-                        if str(e.device_type).endswith("CUDA"))
+                        if str(e.device_type).endswith("CUDA")
+                        and not e.is_user_annotation)
             if total > 0:
                 return total / 1e3 / n, "device"
         log(f"the profiler recorded no device time in {tries} traces; "

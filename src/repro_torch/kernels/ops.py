@@ -20,6 +20,7 @@ import threading
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core.boundary import PERIODIC
 from repro_torch.core.layout import blockize_with_halo, device_constant, unblockize
 from repro_torch.core.orderings import OrderingSpec
@@ -251,12 +252,13 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, g_out):
         qf, kf, vf, o, lse = ctx.saved_tensors
         B, Hq, Sq, D = g_out.shape
-        dq, dk, dv = flash_attention_bwd(qf, kf, vf, o, lse,
-                                         g_out.reshape(qf.shape), **ctx.kw)
-        rep, Sk = Hq // ctx.n_kv, kf.shape[1]
-        dk, dv = (t.reshape(B, ctx.n_kv, rep, Sk, D) for t in (dk, dv))
-        if rep > 1:  # each kv head's gradient: the sum over its group
-            dk, dv = dk.sum(dim=2), dv.sum(dim=2)
+        with trace.span("kernels.flash_attention"):
+            dq, dk, dv = flash_attention_bwd(qf, kf, vf, o, lse,
+                                             g_out.reshape(qf.shape), **ctx.kw)
+            rep, Sk = Hq // ctx.n_kv, kf.shape[1]
+            dk, dv = (t.reshape(B, ctx.n_kv, rep, Sk, D) for t in (dk, dv))
+            if rep > 1:  # each kv head's gradient: the sum over its group
+                dk, dv = dk.sum(dim=2), dv.sum(dim=2)
         return (dq.reshape(B, Hq, Sq, D), dk.reshape(B, ctx.n_kv, Sk, D),
                 dv.reshape(B, ctx.n_kv, Sk, D), None, None, None, None)
 
@@ -353,10 +355,12 @@ def flash_attention(q, k, v, causal: bool = True, schedule: str = "morton",
     CUDA kernels on the card, their plain versions on the CPU). Blocks
     are ``block_q`` and ``block_k`` halved until they divide the sequence
     (each rank's, on a mesh). DTensor inputs run on each rank's batch and
-    heads (:func:`_flash_on_mesh`).
+    heads (:func:`_flash_on_mesh`). Both directions run in the span
+    ``kernels.flash_attention``.
     """
     from torch.distributed.tensor import DTensor
 
-    if isinstance(q, DTensor):
-        return _flash_on_mesh(q, k, v, causal, schedule, block_q, block_k)
-    return _FlashAttention.apply(q, k, v, causal, schedule, block_q, block_k)
+    with trace.span("kernels.flash_attention"):
+        if isinstance(q, DTensor):
+            return _flash_on_mesh(q, k, v, causal, schedule, block_q, block_k)
+        return _FlashAttention.apply(q, k, v, causal, schedule, block_q, block_k)

@@ -31,6 +31,11 @@ cross-entropy over sequence chunks (``_chunked_ce``), plus the MoE
 layers' router aux loss. Decode writes the cache in place through
 per-layer views; an unknown family raises ``ValueError(family)``, as in
 the JAX package.
+
+Under the profiler, the full-sequence paths run in the spans of
+``repro_torch.trace``, forward and backward: each decoder layer's
+``model.attention`` and ``model.mlp``, ``model.head``, and remat's
+``model.recompute``.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ import torch
 import torch.utils.checkpoint as tcp
 from torch.distributed.tensor import DTensor
 
+from repro_torch import trace
 from repro_torch.kernels.ops import on_heads
 
 from . import attention as attn
@@ -288,18 +294,23 @@ def _ffn(p, h, cfg: ModelConfig):
 
 def _attn_layer_train(p, x, cfg: ModelConfig, is_global, pos, cross_kv=None):
     """One decoder layer (attention, the cross-attention to ``cross_kv``
-    where given, FFN/MoE) -> (x, aux)."""
-    x = _seq_whole(x)
-    h = rmsnorm(x, p["norm1"], cfg.norm_eps)
-    if cfg.mla is not None:
-        x = x + attn.mla_attention(p, h, cfg, pos=pos)
-    else:
-        x = x + attn.gqa_attention(p, h, cfg, is_global=is_global, pos=pos)
-    if cross_kv is not None:
-        hx = rmsnorm(x, p["norm_x"], cfg.norm_eps)
-        x = x + _cross_attention(p["cross"], hx, cross_kv, cfg)
-    f, aux = _ffn(p, rmsnorm(x, p["norm2"], cfg.norm_eps), cfg)
-    return _act_constraint(x + f, cfg), aux
+    where given, FFN/MoE) -> (x, aux), in the spans
+    ``model.attention`` and ``model.mlp``."""
+    with trace.sublayer("model.attention") as s:
+        x = _seq_whole(s.input(x))
+        h = rmsnorm(x, p["norm1"], cfg.norm_eps)
+        if cfg.mla is not None:
+            x = x + attn.mla_attention(p, h, cfg, pos=pos)
+        else:
+            x = x + attn.gqa_attention(p, h, cfg, is_global=is_global, pos=pos)
+        if cross_kv is not None:
+            hx = rmsnorm(x, p["norm_x"], cfg.norm_eps)
+            x = x + _cross_attention(p["cross"], hx, cross_kv, cfg)
+        x = s.output(x)
+    with trace.sublayer("model.mlp") as s:
+        x = s.input(x)
+        f, aux = _ffn(p, rmsnorm(x, p["norm2"], cfg.norm_eps), cfg)
+        return s.output(_act_constraint(x + f, cfg)), aux
 
 
 def _cross_attention(p, h, enc_kv, cfg: ModelConfig):
@@ -387,7 +398,8 @@ def _remat(layer_fn, remat):
     whole layer in the backward (``checkpoint``, non-reentrant), "dots"
     saves the weight GEMMs' outputs and recomputes the rest (a selective
     checkpoint), False saves everything. Without grad mode there is nothing
-    to save, and the layer runs as it is."""
+    to save, and the layer runs as it is. A recomputed layer runs in the
+    span ``model.recompute``."""
     if remat not in (True, False, "dots"):
         raise ValueError(f"remat must be True, False or 'dots', got {remat!r}")
     if remat == "dots" and not hasattr(tcp, "create_selective_checkpoint_contexts"):
@@ -401,7 +413,13 @@ def _remat(layer_fn, remat):
     if remat == "dots":
         kw["context_fn"] = functools.partial(
             tcp.create_selective_checkpoint_contexts, _dots_policy)
-    return functools.partial(tcp.checkpoint, layer_fn, use_reentrant=False, **kw)
+
+    def layer(*args, **kwargs):
+        # the rerun in the backward is the span ``model.recompute``
+        with trace.recompute():
+            return layer_fn(*args, **kwargs)
+
+    return functools.partial(tcp.checkpoint, layer, use_reentrant=False, **kw)
 
 
 def _encode(params, frames, cfg: ModelConfig, remat=True):
@@ -435,10 +453,9 @@ def _enc_kv_all(params, enc, cfg: ModelConfig):
     return k, v
 
 
-def forward_hidden(params: dict, batch: dict, cfg: ModelConfig,
-                   remat: bool | str = True):
-    """Full-sequence trunk -> (hidden (B,S,D) after final norm, aux_loss).
-    The vlm family's hidden covers [patches; text]."""
+def _trunk(params: dict, batch: dict, cfg: ModelConfig, remat: bool | str):
+    """The embedding and the layers -> (x (B,S,D) before the final norm,
+    aux_loss)."""
     check_family(cfg)
     adt = getattr(torch, cfg.activation_dtype)
     x = embed(params["embed"], batch["tokens"], adt)
@@ -468,7 +485,19 @@ def forward_hidden(params: dict, batch: dict, cfg: ModelConfig,
             for p, fl, ckv in zip(_layers(params[name]), flags, cross):
                 x, a = layer(p, x, is_global=bool(fl), cross_kv=ckv)
                 aux = aux + a
-    return rmsnorm(_seq_whole(x), params["final_norm"], cfg.norm_eps), aux
+    return x, aux
+
+
+def _final_norm(params: dict, x, cfg: ModelConfig):
+    return rmsnorm(_seq_whole(x), params["final_norm"], cfg.norm_eps)
+
+
+def forward_hidden(params: dict, batch: dict, cfg: ModelConfig,
+                   remat: bool | str = True):
+    """Full-sequence trunk -> (hidden (B,S,D) after final norm, aux_loss).
+    The vlm family's hidden covers [patches; text]."""
+    x, aux = _trunk(params, batch, cfg, remat)
+    return _final_norm(params, x, cfg), aux
 
 
 def _unembed_w(params, cfg):
@@ -491,14 +520,19 @@ def forward(params: dict, batch: dict, cfg: ModelConfig,
     Materialises the full logits — use only for small configs/tests;
     loss_fn and prefill use the chunked/last-position paths.
     """
-    x, aux = forward_hidden(params, batch, cfg, remat)
-    return _mask_pad(unembed(_unembed_w(params, cfg), x), cfg), aux
+    x, aux = _trunk(params, batch, cfg, remat)
+    with trace.sublayer("model.head") as s:
+        x = _final_norm(params, s.input(x), cfg)
+        return s.output(_mask_pad(unembed(_unembed_w(params, cfg), x), cfg)), aux
 
 
 def prefill(params: dict, batch: dict, cfg: ModelConfig):
-    """Inference prefill: trunk + LAST-position logits only (B,V)."""
-    x, _ = forward_hidden(params, batch, cfg, remat=False)
-    return _mask_pad(unembed(_unembed_w(params, cfg), x[:, -1]), cfg)
+    """Inference prefill: trunk + LAST-position logits only (B,V); the
+    final norm and the logits in the span ``model.head``."""
+    x, _ = _trunk(params, batch, cfg, remat=False)
+    with trace.sublayer("model.head") as s:
+        x = _final_norm(params, s.input(x), cfg)
+        return s.output(_mask_pad(unembed(_unembed_w(params, cfg), x[:, -1]), cfg))
 
 
 def _chunked_ce(hidden, w_un, labels, mask, cfg, chunk: int = 512):
@@ -525,13 +559,16 @@ def _chunked_ce(hidden, w_un, labels, mask, cfg, chunk: int = 512):
 def loss_fn(params, batch, cfg: ModelConfig, remat: bool | str = True):
     """(ce + aux, (ce, aux)): the mean next-token cross-entropy over
     ``batch["labels"]`` (kept positions only with ``batch["loss_mask"]``;
-    the vlm family scores its text positions only)."""
-    hidden, aux = forward_hidden(params, batch, cfg, remat)
-    if cfg.family == "vlm":
-        hidden = hidden[:, cfg.vlm.n_patches:]
-    ce = _chunked_ce(hidden, _unembed_w(params, cfg), batch["labels"],
-                     batch.get("loss_mask"), cfg)
-    return ce + aux, (ce, aux)
+    the vlm family scores its text positions only). The final norm and the
+    loss run in the span ``model.head``."""
+    x, aux = _trunk(params, batch, cfg, remat)
+    with trace.sublayer("model.head") as s:
+        hidden = _final_norm(params, s.input(x), cfg)
+        if cfg.family == "vlm":
+            hidden = hidden[:, cfg.vlm.n_patches:]
+        ce = _chunked_ce(hidden, _unembed_w(params, cfg), batch["labels"],
+                         batch.get("loss_mask"), cfg)
+        return s.output(ce + aux), (ce, aux)
 
 
 # ======================================================================

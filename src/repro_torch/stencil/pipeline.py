@@ -29,6 +29,7 @@ from dataclasses import dataclass, field
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core.boundary import (PERIODIC, BoundarySpec, MixedBoundary,
                                        as_boundary, axes_periodic)
 from repro_torch.core.device import resolve_device
@@ -191,11 +192,15 @@ class ResidentPipeline:
     def run(self, cube: torch.Tensor, n_steps: int) -> torch.Tensor:
         """blockize once → n_steps fused curve-ordered updates → unblockize.
         ``cube`` is (M,M,M) for C=1 rules, stacked (C,M,M,M) otherwise; it
-        is not modified."""
+        is not modified. The curve layout into blocks and back runs in the
+        spans ``stencil.blockize`` and ``stencil.unblockize``."""
         if cube.device.type != self.device.type:
             raise ValueError(f"cube is on {cube.device}, the pipeline on {self.device}")
-        store = self.to_blocks(cube)
-        return self.to_cube(self.run_fn(n_steps)(store))
+        with trace.span("stencil.blockize"):
+            store = self.to_blocks(cube)
+        store = self.run_fn(n_steps)(store)
+        with trace.span("stencil.unblockize"):
+            return self.to_cube(store)
 
     # -- modelled device-memory traffic ------------------------------------
     def bytes_per_step(self, n_steps: int, itemsize: int = 4) -> float:

@@ -7,9 +7,14 @@ params()`` after ``Model.requires_grad_()``); it writes the parameters and
 the state in place and returns them. Microbatching splits the leading
 batch axis into ``microbatches`` parts, one backward each, with f32
 gradient accumulation (bf16 activations, f32 master weights and optimizer:
-mixed precision, as in the JAX package). Each phase of a step runs in a
-``torch.profiler.record_function`` range (``loss_and_grads``,
-``adamw_update``) so that a profile can attribute the device's time.
+mixed precision, as in the JAX package). Under the profiler the step's
+work runs in the spans of ``repro_torch.trace``, so that a trace can
+attribute the device's time: the model's (``model.attention``,
+``kernels.flash_attention``, ``model.mlp``, ``model.head``, each forward
+and backward, and remat's ``model.recompute``) and the optimizer's
+``adamw_update``. The backward's ranges open on autograd's own thread,
+which launches its kernels; a range around the whole backward would not
+claim them.
 
 Over a device mesh (DTensor parameters, ``Model.shard``) the step places
 each batch tensor split over the mesh's batch axes (``shard_batch``: the
@@ -25,6 +30,7 @@ from dataclasses import dataclass
 import torch
 from torch.distributed.tensor import DTensor, distribute_tensor
 
+from repro_torch import trace
 from repro_torch.launch.dryrun import _batch_specs, sanitize_specs
 from repro_torch.launch.mesh import batch_axes
 from repro_torch.models import transformer as tfm
@@ -80,24 +86,23 @@ def make_train_step(model: Model, tcfg: TrainConfig):
         leaves = tree_leaves(params)
         if isinstance(leaves[0], DTensor):
             batch = shard_batch(batch, leaves[0].device_mesh)
-        with torch.profiler.record_function("loss_and_grads"):
-            n = tcfg.microbatches
-            if n > 1:
-                gsum = [torch.zeros_like(p, dtype=torch.float32,
-                                         memory_format=torch.contiguous_format)
-                        for p in leaves]
-                lsum = 0.0
-                for i in range(n):
-                    loss, g = value_and_grad(
-                        leaves, params, {k: _micro(x, n, i) for k, x in batch.items()})
-                    for a, b in zip(gsum, g):
-                        a.add_(b.float())
-                    lsum = lsum + loss
-                grads = [g / n for g in gsum]
-                loss = lsum / n
-            else:
-                loss, grads = value_and_grad(leaves, params, batch)
-        with torch.profiler.record_function("adamw_update"):
+        n = tcfg.microbatches
+        if n > 1:
+            gsum = [torch.zeros_like(p, dtype=torch.float32,
+                                     memory_format=torch.contiguous_format)
+                    for p in leaves]
+            lsum = 0.0
+            for i in range(n):
+                loss, g = value_and_grad(
+                    leaves, params, {k: _micro(x, n, i) for k, x in batch.items()})
+                for a, b in zip(gsum, g):
+                    a.add_(b.float())
+                lsum = lsum + loss
+            grads = [g / n for g in gsum]
+            loss = lsum / n
+        else:
+            loss, grads = value_and_grad(leaves, params, batch)
+        with trace.span("adamw_update"):
             new_params, new_state, om = adamw_update(
                 params, tree_like(params, grads), opt_state, tcfg.opt)
         return new_params, new_state, {"loss": _plain(loss), **om}
