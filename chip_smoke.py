@@ -14,7 +14,8 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    ``UTMALDG`` (TMA loads), and that of its backward
    (``libflash_attn_bwd_sm90.so``) ``HGMMA``, ``UTMALDG`` and ``UBLKCP``
    (its lse and Δ by 1-D bulk copies); that of the Hopper stencil design must hold
-   its 44 kernels and no ``FFMA`` (no contracted multiply-add), that of
+   its 44 block kernels and 16 group kernels and no ``FFMA`` (no contracted
+   multiply-add), that of
    the Hopper repack design its 12 kernels, no ``FFMA`` and ``UBLKCP``
    (its 1-D bulk copies);
 2. every kernel against its plain PyTorch version on the card, at M=64
@@ -25,7 +26,12 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    instance of the Hopper stencil design (``fused_design``: T ∈ {8, 16},
    g ∈ {1, 2}, S·g | T, C ∈ {1, 2} where it fits) under each of its rules
    and the four boundaries at M=32, random weights but for gol, also
-   forced with and without its overlap; ``stencil_sum_blocks`` on f32,
+   forced with and without its overlap; every instance of its group
+   design (``fused_design(..., cube=True)``: T=8, S·g ≥ 2) under each of
+   its rules on every block curve at M=32 and M=128 (3 or 4 groups a
+   thread block), periodic, launched by the
+   wrapper and the block design forced beside it, and the wave cells' S=4
+   at M=256 on the Hilbert and row-major stores; ``stencil_sum_blocks`` on f32,
    bf16 and f16 blocks for each (T, g) above, with the neighbour count's
    and random weights, under the design ``blocks_design`` gives and
    forced onto the first design where the Hopper design runs; fault F2:
@@ -310,6 +316,7 @@ import atexit
 import contextlib
 import dataclasses
 import functools
+import itertools
 import json
 import math
 import os
@@ -348,6 +355,9 @@ REPLACES = {"stencil_step_fused": "src/repro/kernels/stencil3d.py:296",
 BCS = ("periodic", "dirichlet", "neumann0", "mixed")
 # csrc/stencil3d_sm90.cu: 12 (T, g, S) for gol, jacobi and identity, 8 for wave
 SM90_STENCIL_KERNELS = 44
+# and its group design: (g, S) in {(1, 2), (1, 4), (2, 1), (2, 2)} at T=8,
+# for gol, jacobi, identity and wave
+SM90_GROUP_KERNELS = 16
 # csrc/stencil3d_blocks_sm90.cu: (T, g) in {8, 16} x {1, 2}, f32, bf16 and f16
 SM90_BLOCKS_KERNELS = 12
 # the (T, g) pairs of the tap sums' checks: the Hopper designs' four, then
@@ -2189,7 +2199,8 @@ def main() -> int:
     from repro_torch.core import (apply_ordering, as_boundary, axes_periodic,
                                   blockize, blockize_fields, blockize_with_halo,
                                   boundary_face_table_device, dirichlet,
-                                  extended_neighbor_table_device, mixed,
+                                  extended_neighbor_table_device,
+                                  group_table_device, mixed,
                                   neighbor_table_device, store_spec)
     from repro_torch.configs.registry import ShapeSpec, concrete_batch
     from repro_torch.core.layout import _perm_device
@@ -2335,6 +2346,13 @@ def main() -> int:
         """fn(), one fused or resident launch of ``design``."""
         return one_launch_of(_build.STENCIL_DESIGN_LAUNCHES, design, fn, what)
 
+    def step_design(T, g, S, C, bc):
+        """The design ``stencil_step_fused`` launches on the f32 store of a
+        whole cube of an even number of blocks per edge under ``bc``: the
+        group design where the contract is periodic and it has an
+        instance."""
+        return K.fused_design(T, g, S, C, cube=not as_boundary(bc).clamped)
+
     def blocks_on(design, fn, what):
         """fn(), one repack tap-sum launch of ``design``."""
         return one_launch_of(_build.BLOCKS_DESIGN_LAUNCHES, design, fn, what)
@@ -2447,15 +2465,20 @@ def main() -> int:
           f"{n_blk} UBLKCP")
     log(f"flash_attn_bwd_sm90 SASS: {n_hgmma} HGMMA, {n_tma} UTMALDG, {n_blk} UBLKCP "
         f"instructions")
-    # the Hopper stencil design: every instance built, and no contracted
-    # multiply-add anywhere (bit-exactness rests on separate FMUL and FADD)
+    # the Hopper stencil design: every instance of its block and group
+    # designs built, and no contracted multiply-add anywhere (bit-exactness
+    # rests on separate FMUL and FADD)
     sass = sass_of("stencil3d_sm90")
     n_kern = len(re.findall(r"Function : \S*fused_sm90_kernel", sass))
+    n_group = len(re.findall(r"Function : \S*fused_group_sm90_kernel", sass))
     n_ffma, n_fmul = sass.count("FFMA"), sass.count("FMUL")
-    check(n_kern == SM90_STENCIL_KERNELS and n_ffma == 0 and n_fmul > 0,
-          f"stencil3d_sm90 SASS holds {n_kern} kernels, {n_ffma} FFMA")
-    log(f"stencil3d_sm90 SASS: {n_kern} kernels, {n_ffma} FFMA, {n_fmul} FMUL, "
-        f"{sass.count('LDGSTS')} LDGSTS (cp.async) instructions")
+    check(n_kern == SM90_STENCIL_KERNELS and n_group == SM90_GROUP_KERNELS
+          and n_ffma == 0 and n_fmul > 0,
+          f"stencil3d_sm90 SASS holds {n_kern} block and {n_group} group kernels, "
+          f"{n_ffma} FFMA")
+    log(f"stencil3d_sm90 SASS: {n_kern} block and {n_group} group kernels, "
+        f"{n_ffma} FFMA, {n_fmul} FMUL, {sass.count('LDGSTS')} LDGSTS (cp.async) "
+        f"instructions")
     # the Hopper repack design: every instance built, no contracted
     # multiply-add, and its windows fed by 1-D bulk copies (cp.async.bulk,
     # UBLKCP in the SASS)
@@ -2518,7 +2541,7 @@ def main() -> int:
         nbr = neighbor_table_device(kind, M // T, periodic=axes_periodic(bc), device=dev)
         bnd = boundary_face_table_device(kind, M // T, dev)
         w = uniform_weights(g, dev)
-        got = stencil_on(K.fused_design(T, g, S, C),
+        got = stencil_on(step_design(T, g, S, C, bc),
                          lambda: K.stencil_step_fused(store, w, nbr, bnd, g=g, S=S,
                                                       rule=rule, bc=bc),
                          f"fused {kind} S={S} {rule} {bcn} T={T} g={g}")
@@ -2713,7 +2736,7 @@ def main() -> int:
                                             device=dev)
                 bnd = boundary_face_table_device(kind, M_I // T, dev)
                 what = f"sm90 T={T} g={g} S={S} {rule} {bcn} {kind}"
-                got = stencil_on("sm90", lambda: K.stencil_step_fused(
+                got = stencil_on(step_design(T, g, S, C, bc), lambda: K.stencil_step_fused(
                     store, w, nbr, bnd, g=g, S=S, rule=rule, bc=bc), what)
                 want = ref.stencil_fused_ref(store, w, nbr, S=S, rule=rule, bc=bc,
                                              bnd=bnd)
@@ -2745,6 +2768,75 @@ def main() -> int:
     sync()
     log(f"Hopper stencil design: {len(inst)} (T, g, S, C) instances, {n_cmp} "
         f"comparisons bit-equal at M={M_I} ({time.perf_counter() - t0:.1f} s)")
+
+    # every instance of its group design (one thread block a 2x2x2 group
+    # of blocks over a periodic cube), under each rule it is built for, on
+    # every block curve, launched by the wrapper, with the block design
+    # forced beside it: at M=32 (8 groups, so each thread block steps one)
+    # and at M=128 (512 groups over the card's 132 thread blocks, 3 or 4
+    # each, so the persistent loop brings the next window in and, at odd
+    # S, swaps its buffers; where a third window fits, its streaming
+    # branch forced too); then the wave cells' shape at M=256 (S=4) on
+    # the Hilbert and row-major stores, both designs against the plain
+    # version
+    t0 = time.perf_counter()
+    n_cmp = 0
+    periodic = as_boundary("periodic")
+    ginst = [(T, g, S, C) for T in (8, 16) for g in (1, 2) for S in (1, 2, 4, 8, 16)
+             for C in (1, 2) if K.fused_design(T, g, S, C, cube=True) == "sm90_group"]
+    check(len(ginst) == 8, f"{len(ginst)} (T, g, S, C) instances of the group design")
+    for (T, g, S, C), M_G in itertools.product(ginst, (32, 128)):
+        nb_i, s_ = (M_G // T) ** 3, 2 * g + 1
+        for rule in ("wave",) if C == 2 else ("gol", "jacobi", "identity"):
+            w = uniform_weights(g, dev) if rule == "gol" else torch.from_numpy(
+                rng.normal(size=(s_, s_, s_)).astype(np.float32)).to(dev)
+            for kind in KINDS:
+                cube = cube_for(rule, M_G, C)
+                store = (blockize_fields(cube, T, kind) if C == 2
+                         else blockize(cube[0], T, kind))
+                nbr = neighbor_table_device(kind, M_G // T, device=dev)
+                what = f"sm90_group M={M_G} T={T} g={g} S={S} {rule} {kind}"
+                got = stencil_on("sm90_group", lambda: K.stencil_step_fused(
+                    store, w, nbr, g=g, S=S, rule=rule), what)
+                want = ref.stencil_fused_ref(store, w, nbr, S=S, rule=rule)
+                forced = torch.full_like(got, float("nan"))
+                stencil_on("sm90", lambda: K._fused_on_card(
+                    "sm90", store, w, nbr, None, forced, nb_i, g=g, S=S, rule=rule,
+                    bc=periodic), f"{what}, the block design forced")
+                check(torch.equal(got, want) and torch.equal(forced, want),
+                      f"{what}: max |d| {(got - want).abs().max().item()}, the block "
+                      f"design's {(forced - want).abs().max().item()}")
+                n_cmp += 2
+                if M_G == 128 and K.group_smem_bytes(
+                        T, g, S, fields=C, windows=3) <= K.SMEM_LIMIT_BYTES:
+                    # it prefetches: its streaming branch forced as well
+                    streamed = torch.full_like(got, float("nan"))
+                    stencil_on("sm90_group", lambda: K._fused_on_card(
+                        "sm90_group", store, w, nbr, None, streamed, nb_i, g=g, S=S,
+                        rule=rule, bc=periodic, overlap=False,
+                        groups=group_table_device(nbr)), f"{what} streaming")
+                    check(torch.equal(streamed, want), f"{what} streaming != plain")
+                    n_cmp += 1
+    w = uniform_weights(G_MAIN, dev)
+    for kind in ("hilbert", "row_major"):
+        store = blockize_fields(cube_for("wave", M_MAIN, 2), T_MAIN, kind)
+        nbr = neighbor_table_device(kind, M_MAIN // T_MAIN, device=dev)
+        what = f"sm90_group wave M={M_MAIN} S={S_MAIN} {kind}"
+        got = stencil_on("sm90_group", lambda: K.stencil_step_fused(
+            store, w, nbr, g=G_MAIN, S=S_MAIN, rule="wave"), what)
+        want = ref.stencil_fused_ref(store, w, nbr, S=S_MAIN, rule="wave")
+        forced = torch.full_like(got, float("nan"))
+        stencil_on("sm90", lambda: K._fused_on_card(
+            "sm90", store, w, nbr, None, forced, store.shape[1], g=G_MAIN, S=S_MAIN,
+            rule="wave", bc=periodic), f"{what}, the block design forced")
+        check(torch.equal(got, want) and torch.equal(forced, want),
+              f"{what}: max |d| {(got - want).abs().max().item()}")
+        n_cmp += 2
+        del store, got, want, forced
+    sync()
+    log(f"group design: {len(ginst)} (T, g, S, C) instances, {n_cmp} comparisons "
+        f"bit-equal at M=32, M=128 and the wave cells' M={M_MAIN} "
+        f"({time.perf_counter() - t0:.1f} s)")
 
     # The fused kernel on extended stores: the core and shell blocks of a
     # 2×2×2 local mesh of M=64 shards, the shells filled by the
@@ -2992,16 +3084,17 @@ def main() -> int:
     def counted(fn):
         """fn() with the launch counts set to 0 just before and read just
         after; every fused, resident and repack launch must be of a Hopper
-        design."""
+        design (the block or the group design)."""
         K.reset_launches()
         out = fn()
         sync()
         counts = dict(K.LAUNCHES)
         by_design = dict(_build.STENCIL_DESIGN_LAUNCHES)
         stencil = counts["stencil_step_fused"] + counts["stencil_sum_resident"]
-        check(by_design == {"sm90": stencil, "simple": 0},
+        check(by_design["simple"] == 0
+              and by_design["sm90"] + by_design["sm90_group"] == stencil,
               f"fused and resident launches by design {by_design}, want all "
-              f"{stencil} sm90")
+              f"{stencil} sm90 or sm90_group")
         by_blocks = dict(_build.BLOCKS_DESIGN_LAUNCHES)
         check(by_blocks == {"sm90": counts["stencil_sum_blocks"], "simple": 0},
               f"repack launches by design {by_blocks}, want all "
@@ -3018,8 +3111,10 @@ def main() -> int:
         want = app.reference_run(K_MAIN)
         _, counts = counted(lambda: app.run_resident(K_MAIN))
         got = app.cube
-        check(counts["stencil_step_fused"] == -(-K_MAIN // S_MAIN),
-              f"{kind}: {counts} fused launches for K={K_MAIN}, S={S_MAIN}")
+        check(counts["stencil_step_fused"] == -(-K_MAIN // S_MAIN)
+              == _build.STENCIL_DESIGN_LAUNCHES["sm90_group"],
+              f"{kind}: {counts} fused launches for K={K_MAIN}, S={S_MAIN}, by "
+              f"design {_build.STENCIL_DESIGN_LAUNCHES}, want all sm90_group")
         check(got.shape == (M_MAIN,) * 3 and bool(torch.isfinite(got).all()),
               f"{kind}: result not finite or misshapen")
         check(torch.equal(got, want), f"{kind}: run_resident != reference_run")
@@ -3061,6 +3156,7 @@ def main() -> int:
     w1 = uniform_weights(G_MAIN, dev)
     store = blockize(cube, T_MAIN, "hilbert")
     nbr_h = neighbor_table_device("hilbert", M_MAIN // T_MAIN, device=dev)
+    groups_h = group_table_device(nbr_h)
     acc, counts = counted(lambda: K.stencil_sum_resident(store, w1, nbr_h,
                                                          g=G_MAIN))
     check(counts["stencil_sum_resident"] == 1, f"resident launches {counts}")
@@ -3681,24 +3777,30 @@ def main() -> int:
         return {name: statistics.mean(t) for name, t in got.items()}, got
 
     # stencil_step_fused at the main path's shape: gol, hilbert store; the
-    # first design, the Hopper design forced without and with its overlap,
-    # and as it launches (the row's time), in turns
+    # first design, the Hopper block design forced without and with its
+    # overlap and as it launches, the group design with its next window
+    # streamed in while the result is written, and as it launches (the next
+    # window prefetched beside the substeps: the row's time), in turns
     out = torch.empty_like(store)
     fused = lambda: K.stencil_step_fused(store, w1, nbr_h, g=G_MAIN, S=S_MAIN,
                                          out=out)
     plain = lambda: ref.stencil_fused_ref(store, w1, nbr_h, S=S_MAIN)
     err = (fused() - plain()).abs().max().item()
-    periodic = as_boundary("periodic")
 
     def fused_by(design, overlap=None):
         return lambda: K._fused_on_card(design, store, w1, nbr_h, None, out, nb,
                                         g=G_MAIN, S=S_MAIN, rule="gol",
-                                        bc=periodic, overlap=overlap)
+                                        bc=periodic, overlap=overlap,
+                                        groups=groups_h)
 
     fused_variants = {"first design": fused_by("simple"),
                       "Hopper design without overlap": fused_by("sm90", False),
                       "Hopper design with overlap": fused_by("sm90", True),
-                      "Hopper design": fused_by("sm90")}
+                      "Hopper design": fused_by("sm90"),
+                      "group design streaming": fused_by("sm90_group", False),
+                      "group design": fused_by("sm90_group")}
+    check(K.fused_design(T_MAIN, G_MAIN, S_MAIN, 1, cube=True) == "sm90_group",
+          "the main path's launch is not of the group design")
     for name, fn in fused_variants.items():
         fn()
         check(torch.equal(out, plain()), f"fused, {name}, != plain at M={M_MAIN}")
@@ -3709,29 +3811,65 @@ def main() -> int:
     ops = S_MAIN * nb * T3 * 2 * TAPS
     b_ms, b_by = bound(4 * (2 * nb * T3 + nb * 27 + nb * 6 + TAPS), ops)
     # The design's own work, a separate model: each substep also recomputes
-    # the halo sites that the shrinking window still needs.
-    design_ops = sum(nb * (T_MAIN + 2 * G_MAIN * (S_MAIN - 1 - u)) ** 3 * 2 * TAPS
-                     for u in range(S_MAIN))
+    # the halo sites that the shrinking window still needs, around a block
+    # (the block design) or around a group of 2x2x2 blocks (the group design).
+    def tile_ops(edge, tiles, S_=S_MAIN):
+        return sum(tiles * (edge + 2 * G_MAIN * (S_ - 1 - u)) ** 3 * 2 * TAPS
+                   for u in range(S_))
+
+    design_ops = tile_ops(T_MAIN, nb)
+    group_ops = tile_ops(2 * T_MAIN, nb // 8)
     # Without FMA every multiply and add is one f32 instruction, issued at
     # half the 67 TFLOP/s that count an FMA as two operations
     floor = lambda n_ops: 1e3 * n_ops / (F32_FLOP_PER_S / 2)
     log(f"fused work per launch: {ops / 1e9:.3f} GFLOP for the function, "
-        f"{design_ops / 1e9:.3f} GFLOP for the design with its recomputed halo "
-        f"sites ({design_ops / ops:.2f}x; "
-        f"{1e3 * design_ops / F32_FLOP_PER_S:.4f} ms at 67 TFLOP/s); without "
-        f"FMA the function's floor is {floor(ops):.4f} ms, the design's "
-        f"{floor(design_ops):.4f} ms")
+        f"{design_ops / 1e9:.3f} GFLOP for the block design with its recomputed "
+        f"halo sites ({design_ops / ops:.2f}x; "
+        f"{1e3 * design_ops / F32_FLOP_PER_S:.4f} ms at 67 TFLOP/s), "
+        f"{group_ops / 1e9:.3f} GFLOP for the group design ({group_ops / ops:.3f}x); "
+        f"without FMA the function's floor is {floor(ops):.4f} ms, the block "
+        f"design's {floor(design_ops):.4f} ms, the group design's "
+        f"{floor(group_ops):.4f} ms")
+
+    def work_of(name):
+        return group_ops if name.startswith("group design") else design_ops
+
     log(f"stencil_step_fused M={M_MAIN} T={T_MAIN} S={S_MAIN} g={G_MAIN} gol, in "
         f"turns: " + "; ".join(
             f"{name} {fused_ms[name]:.4f} ms (readings "
             f"{', '.join(f'{t:.4f}' for t in fused_reads[name])}; "
-            f"{design_ops / fused_ms[name] / 1e9:.1f} G f32 instructions/s of "
-            f"the design's work, {100 * floor(design_ops) / fused_ms[name]:.1f}% "
+            f"{work_of(name) / fused_ms[name] / 1e9:.1f} G f32 instructions/s of "
+            f"the design's work, {100 * floor(work_of(name)) / fused_ms[name]:.1f}% "
             f"of its non-FMA floor)" for name in fused_variants))
-    kernels.append(dict(name="stencil_step_fused", ms=fused_ms["Hopper design"],
+    # the wave cells' launch (M=256, C=2, S=4, Hilbert store): the group
+    # design the wrapper launches and the block design, in turns; u's taps
+    # alone are summed, so the work is gol's, and the store moves 2 channels
+    wst = blockize_fields(fields, T_MAIN, "hilbert")
+    wout = torch.empty_like(wst)
+    wave_variants = {d: (lambda d=d: K._fused_on_card(
+        d, wst, w1, nbr_h, None, wout, nb, g=G_MAIN, S=S_MAIN, rule="wave",
+        bc=periodic, groups=groups_h)) for d in ("sm90_group", "sm90")}
+    wave_ms, wave_reads = in_turns(wave_variants)
+    wb_ms, wb_by = bound(4 * (2 * 2 * nb * T3 + nb * 27 + TAPS), ops)
+    log(f"stencil_step_fused M={M_MAIN} T={T_MAIN} S={S_MAIN} g={G_MAIN} wave "
+        f"(the benchmark's cells), in turns: group design "
+        f"{wave_ms['sm90_group']:.4f} ms (readings "
+        f"{', '.join(f'{t:.4f}' for t in wave_reads['sm90_group'])}), block design "
+        f"{wave_ms['sm90']:.4f} ms ({', '.join(f'{t:.4f}' for t in wave_reads['sm90'])}); "
+        f"bound {wb_ms:.4f} ms by {wb_by} ({100 * wb_ms / wave_ms['sm90_group']:.2f}% "
+        f"of it), the group design's non-FMA floor at {group_ops / ops:.3f}x the "
+        f"function's work {floor(group_ops):.4f} ms "
+        f"({100 * floor(group_ops) / wave_ms['sm90_group']:.1f}% of it)")
+    del wst, wout
+    kernels.append(dict(name="stencil_step_fused", ms=fused_ms["group design"],
                         plain_ms=cuda_ms(plain, reps=3, inner=1),
                         max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
-                        library_ms=None))
+                        library_ms=None, block_design_ms=fused_ms["Hopper design"],
+                        group_streaming_ms=fused_ms["group design streaming"],
+                        wave_ms=wave_ms["sm90_group"],
+                        wave_block_design_ms=wave_ms["sm90"], wave_bound_ms=wb_ms,
+                        group_floor_ms=floor(group_ops),
+                        block_floor_ms=floor(design_ops)))
 
     # stencil_sum_resident at the main path's shape, both designs in turns
     res = lambda: K.stencil_sum_resident(store, w1, nbr_h, g=G_MAIN, out=out)
@@ -4173,7 +4311,8 @@ def main() -> int:
             rule="gol", bc=periodic, overlap=ov), reps=5, inner=3) / S_
             for ov in (False, True)}
         log(f"T={T_} S={S_}: fused kernels {k_ms:.4f} ms/timestep "
-            f"({K.fused_design(T_, G_MAIN, S_, 1)} design; one launch forced "
+            f"({K.fused_design(T_, G_MAIN, S_, 1, cube=True)} design; one launch "
+            f"of the block design forced "
             f"without overlap {forced[False]:.4f}, with {forced[True]:.4f} "
             f"ms/timestep), modelled "
             f"{pipe.bytes_per_step(K_MAIN) / 1e6:.1f} MB/timestep, "

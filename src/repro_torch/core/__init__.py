@@ -12,9 +12,10 @@ from .layout import (  # noqa: F401
     unblockize_fields, undo_ordering,
 )
 from .neighbors import (  # noqa: F401
-    FACE_COLS, OFFSETS_FACE, OFFSETS_FULL, SELF_COL, block_kind_of,
-    boundary_face_table, boundary_face_table_device, extended_neighbor_table,
-    extended_neighbor_table_device, neighbor_table, neighbor_table_device,
+    FACE_COLS, GROUP_COLS, GROUP_WINDOW, OFFSETS_FACE, OFFSETS_FULL, SELF_COL,
+    block_kind_of, boundary_face_table, boundary_face_table_device,
+    extended_neighbor_table, extended_neighbor_table_device, group_table,
+    group_table_device, neighbor_table, neighbor_table_device,
     ring_perms, shell_block_count, shell_block_index,
 )
 from .orderings import (  # noqa: F401

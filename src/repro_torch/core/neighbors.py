@@ -7,21 +7,29 @@ give the path positions of its 26 grid neighbours (int32, built once per
 edge. Column ``(a·9 + b·3 + c)`` of a full table is the neighbour at
 offset ``(a-1, b-1, c-1)``, the order in which the CUDA kernels assemble
 their windows; column :data:`SELF_COL` (= 13) is the block itself.
+
+The group table (:func:`group_table`) gathers a periodic cube's blocks
+into aligned 2×2×2 groups, the tiles of the fused kernel's group design.
 """
 
 from __future__ import annotations
 
 import functools
+import threading
+import weakref
 
 import numpy as np
+import torch
 
 from .layout import block_order, device_constant
 from .orderings import OrderingSpec
 
 __all__ = [
     "OFFSETS_FULL", "OFFSETS_FACE", "FACE_COLS", "SELF_COL",
+    "GROUP_COLS", "GROUP_WINDOW",
     "block_kind_of", "neighbor_table", "neighbor_table_device",
     "boundary_face_table", "boundary_face_table_device",
+    "group_table", "group_table_device",
     "shell_block_count", "shell_block_index", "extended_neighbor_table",
     "extended_neighbor_table_device", "ring_perms",
 ]
@@ -139,6 +147,89 @@ def boundary_face_table_device(spec: OrderingSpec | str, nt: int,
     kind = block_kind_of(spec)
     return device_constant(("bndtab", kind, nt),
                            lambda: boundary_face_table(kind, nt), device)
+
+
+# A group table row: the 4×4×4 blocks around the group, column
+# ``(a·4 + b)·4 + c`` the block at offset ``(a-1, b-1, c-1)`` from the
+# group's first corner, then the group's own 8 blocks, column
+# ``GROUP_WINDOW + (dk·2 + di)·2 + dj`` the one at ``(dk, di, dj)``.
+GROUP_WINDOW = 64
+GROUP_COLS = GROUP_WINDOW + 8
+
+
+def _torus_coords(nbr: torch.Tensor) -> torch.Tensor | None:
+    """The ``(nt, nt, nt)`` block ids of the periodic cube whose ``(nb, 27)``
+    table ``nbr`` is, at their grid positions counted from block 0's, or
+    None if ``nbr`` is no periodic cube's table: block 0's +j, then +i,
+    then +k neighbours walked, and every column checked against the
+    walk."""
+    nb = nbr.shape[0]
+    nt = round(nb ** (1 / 3))
+    if nbr.ndim != 2 or nbr.shape[1] != 27 or nt < 1 or nt ** 3 != nb:
+        return None
+    t = nbr.long()
+    if bool((t < 0).any()) or bool((t >= nb).any()):
+        return None
+    step = {ax: OFFSETS_FULL.index(tuple(int(a == ax) for a in range(3)))
+            for ax in range(3)}
+    ids = torch.zeros((1, 1, 1), dtype=torch.long, device=t.device)
+    for ax in (2, 1, 0):  # grow the line along j, the plane along i, the cube along k
+        parts = [ids]
+        for _ in range(nt - 1):
+            parts.append(t[parts[-1], step[ax]])
+        ids = torch.cat(parts, dim=ax)
+    if not bool((torch.bincount(ids.flatten(), minlength=nb) == 1).all()):
+        return None
+    want = torch.stack([ids.roll((-a, -b, -c), dims=(0, 1, 2))
+                        for a, b, c in OFFSETS_FULL], dim=-1)
+    return ids if torch.equal(t[ids], want) else None
+
+
+def group_table(nbr: torch.Tensor) -> torch.Tensor | None:
+    """``(nt³/8, 72)`` int32 group table of the periodic cube whose
+    ``(nb, 27)`` neighbour table is ``nbr`` (on ``nbr``'s device), or None
+    when ``nbr`` is not the table of a periodic cube of an even number nt
+    of blocks per edge.
+
+    The groups are the aligned 2×2×2 sets of blocks, counted from block
+    0's position; each block is in exactly one. A row holds the
+    :data:`GROUP_WINDOW` ids of the 4×4×4 blocks around its group (the
+    neighbours of its blocks, wrapping at the edges), then the group's
+    own 8 (:data:`GROUP_COLS`). Rows come in the store's order: row r is
+    the group whose first block comes r-th along the store.
+    """
+    ids = _torus_coords(nbr)
+    if ids is None or ids.shape[0] % 2:
+        return None
+    nt, dev = ids.shape[0], ids.device
+    ng = nt // 2
+    ax = (2 * torch.arange(ng, device=dev)[:, None] - 1
+          + torch.arange(4, device=dev)[None, :]) % nt       # (ng, 4)
+    win = ids[ax[:, None, None, :, None, None], ax[None, :, None, None, :, None],
+              ax[None, None, :, None, None, :]]              # (ng, ng, ng, 4, 4, 4)
+    own = win[..., 1:3, 1:3, 1:3].reshape(-1, 8)
+    rows = torch.cat([win.reshape(-1, GROUP_WINDOW), own], dim=1)
+    return rows[torch.argsort(own.min(dim=1).values)].to(torch.int32).contiguous()
+
+
+_GROUP_TABLES: dict[int, tuple] = {}
+_GROUP_TABLES_LOCK = threading.Lock()
+
+
+def group_table_device(nbr: torch.Tensor) -> torch.Tensor | None:
+    """:func:`group_table` of ``nbr``, built once per neighbour table (the
+    same tensor, unmodified since) and kept on its device: the fused
+    step's launches look it up, and never build it again."""
+    with _GROUP_TABLES_LOCK:
+        hit = _GROUP_TABLES.get(id(nbr))
+        if hit is not None and hit[0]() is nbr and hit[1] == nbr._version:
+            return hit[2]
+    groups = group_table(nbr)
+    with _GROUP_TABLES_LOCK:
+        for key in [k for k, v in _GROUP_TABLES.items() if v[0]() is None]:
+            del _GROUP_TABLES[key]
+        _GROUP_TABLES[id(nbr)] = (weakref.ref(nbr), nbr._version, groups)
+    return groups
 
 
 def shell_block_count(nt: int) -> int:

@@ -75,7 +75,7 @@ FLASH_DESIGN_LAUNCHES = {"sm90": 0, "simple": 0}
 FLASH_BWD_DESIGN_LAUNCHES = {"sm90": 0, "simple": 0}
 # stencil_step_fused's and stencil_sum_resident's launches by design
 # (kernels/stencil3d.fused_design): each also counts once in LAUNCHES.
-STENCIL_DESIGN_LAUNCHES = {"sm90": 0, "simple": 0}
+STENCIL_DESIGN_LAUNCHES = {"sm90": 0, "sm90_group": 0, "simple": 0}
 # stencil_sum_blocks' launches by design (kernels/stencil3d.blocks_design):
 # each also counts once in LAUNCHES.
 BLOCKS_DESIGN_LAUNCHES = {"sm90": 0, "simple": 0}

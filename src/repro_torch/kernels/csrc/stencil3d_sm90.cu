@@ -10,7 +10,8 @@
 //     periodic (on an f32 store the identity rule's output is the tap sum).
 // It takes T in {8, 16}, g in {1, 2}, S*g | T, C in {1, 2} (C = 2 is the
 // wave rule, which tap-sums u only), wherever three C*(T+2Sg)^3 f32
-// windows fit in shared memory; every rule and boundary contract of the
+// windows fit in shared memory (its group design, 4. below, T = 8 where
+// two C*(2T+2Sg)^3 windows fit); every rule and boundary contract of the
 // first design, the extended stores of the distributed path (nb <= nb_src,
 // out channels out_nb >= nb blocks apart), and its __trap on a neighbour
 // id outside the store.
@@ -29,11 +30,12 @@
 // What bounds it on an H100. The function needs S*M^3*(2g+1)^3 multiplies
 // and as many adds (3.62 GFLOP at M=256, S=4, g=1; 0.054 ms at 67 TFLOP/s).
 // Without FMA each tap is two f32 instructions, and 132 SMs x 128 lanes x
-// 1.98 GHz issue 33.5 T of them a second: 0.108 ms. A block's window also
-// recomputes the halo sites its shrinking windows still need (2.92x the
-// function's work at T=8, S=4: 0.317 ms). So the limit is the instruction
-// stream, and every instruction beside the multiplies and adds costs
-// issue slots. What each part of the design does about it:
+// 1.98 GHz issue 33.5 T of them a second: 0.108 ms. A tile's window also
+// recomputes the halo sites its shrinking windows still need: 2.92x the
+// function's work for one T=8 block at S=4 (0.317 ms), 1.74x for a 2x2x2
+// group of them (0.189 ms). So the limit is the instruction stream, and
+// every instruction beside the multiplies and adds costs issue slots. What
+// each part of the design does about it:
 //   1. Compile-time shapes: one kernel per (rule, g, T, S); every window
 //      edge, pitch, loop bound and index division is a constant.
 //   2. Register tiling: a thread owns a column of NZ sites along k times
@@ -56,8 +58,21 @@
 //      takes this only where the third window costs no thread block per
 //      SM; elsewhere one thread block per output block, two windows, and
 //      the hardware's scheduling overlaps blocks (launch()).
-// Not done: several store blocks per thread block as one larger tile
-// (fewer recomputed halo sites, from a host-side group table). See PERF.md.
+//   4. The group design (fused_group_sm90_kernel), for the periodic
+//      resident cube with T=8 and S*g >= 2: one thread block of 512
+//      threads, one an SM, steps an aligned 2x2x2 group of blocks as one
+//      tile of edge 2T from a host-built group table (core/neighbors.
+//      group_table: each group's 4x4x4 window blocks and 8 outputs, in the
+//      store's order), so the recomputed halo falls from 2.92x to 1.74x
+//      the function's work and the window bytes read per output block to
+//      0.42x. Two 24^3 windows of the wave's two channels fill 221 KB, so
+//      there the next group's window streams into the buffer the result
+//      does not occupy while the result is written; where a third window
+//      fits (one channel, or 20^3) it streams in beside the substeps,
+//      2-5% quicker a launch (see PERF.md).
+// Not done: skipping the multiplies by all-ones weights and the zero
+// centre tap (the wave's reference adds just the 26 neighbours), a bf16
+// instance, groups of T=16 blocks. See PERF.md.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -269,42 +284,44 @@ __host__ __device__ constexpr int column_cost(int G, int nz) {
   return nz * (2 * NX * K * K * K + 8) + (nz + 2 * G) * K * (NX + 2 * G) / 2 + 25;
 }
 
-// The rounds of NT columns that a substep of O^3 sites takes in columns
-// nz deep (the last column of a ragged k extent moved back to end at O).
-__host__ __device__ constexpr int column_rounds(int O, int nz) {
-  return (((O + nz - 1) / nz) * O * (O / NX) + NT - 1) / NT;
+// The rounds of nth columns (one a thread) that a substep of O^3 sites
+// takes in columns nz deep (the last column of a ragged k extent moved back
+// to end at O).
+__host__ __device__ constexpr int column_rounds(int O, int nz, int nth) {
+  return (((O + nz - 1) / nz) * O * (O / NX) + nth - 1) / nth;
 }
 
 // The column depth that makes a substep's slowest thread quickest: rounds
 // times the cost of a column, the deepest on a tie (deeper columns share
 // more loads); at most 8 for g = 1, 2 for g = 2 (registers).
-__host__ __device__ constexpr int column_depth(int G, int O) {
+__host__ __device__ constexpr int column_depth(int G, int O, int nth) {
   int best = 1;
   for (int nz = 2; nz <= (G == 1 ? 8 : 2) && nz <= O; ++nz)
-    if (column_rounds(O, nz) * column_cost(G, nz) <=
-        column_rounds(O, best) * column_cost(G, best))
+    if (column_rounds(O, nz, nth) * column_cost(G, nz) <=
+        column_rounds(O, best, nth) * column_cost(G, best))
       best = nz;
   return best;
 }
 
 // One substep: the O^3 sites of cur's window (edge O + 2G at the origin,
-// pitch P) into nxt at the origin. Columns of NZ x NX sites; the last
-// column of a ragged k extent is moved back to end at O (its overlap is
-// computed twice and written twice, alike).
-template <int RULE, int G, int P, int O, int TAPS>
+// pitch P) into nxt at the origin, by a thread block of NTH threads.
+// Columns of NZ x NX sites; the last column of a ragged k extent is moved
+// back to end at O (its overlap is computed twice and written twice,
+// alike).
+template <int RULE, int G, int P, int O, int NTH, int TAPS>
 __device__ __forceinline__ void substep(const float* __restrict__ cur,
                                         float* __restrict__ nxt,
                                         const float (&w)[TAPS]) {
   constexpr int C = channels_of(RULE);
   constexpr int K = 2 * G + 1;
-  constexpr int NZ = column_depth(G, O);
+  constexpr int NZ = column_depth(G, O, NTH);
   constexpr int NZG = (O + NZ - 1) / NZ;
   constexpr int XG = O / NX;
   constexpr int NCOL = NZG * O * XG;
   constexpr int R = NX + 2 * G;
   constexpr int P2 = P * P, P3 = P2 * P;
   static_assert(O % NX == 0 && P % 2 == 0 && R % 2 == 0, "8-byte rows");
-  for (int col = threadIdx.x; col < NCOL; col += NT) {
+  for (int col = threadIdx.x; col < NCOL; col += NTH) {
     const int xg = col % XG, t = col / XG;
     const int y = t % O, zg = t / O;
     const int z0 = min(zg * NZ, O - NZ);
@@ -386,7 +403,7 @@ __device__ __forceinline__ const float* substeps(float* cur, float* nxt,
     constexpr int D = G * (S - U);  // ghost depth before this substep
     constexpr int E = T + 2 * D;    // window edge before it
     refresh_ghosts<channels_of(RULE), P, E, D>(cur, bc, flags);
-    substep<RULE, G, P, E - 2 * G>(cur, nxt, w);
+    substep<RULE, G, P, E - 2 * G, NT>(cur, nxt, w);
     __syncthreads();
     return substeps<RULE, G, T, S, U + 1>(nxt, cur, w, bc, flags);
   }
@@ -554,6 +571,257 @@ cudaError_t dispatch(int T, int g, int S, const Args& a) {
   return cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// The group design: one thread block steps an aligned 2x2x2 group of T = 8
+// store blocks as one tile of edge 2T over the periodic resident cube. Its
+// window has edge P = 2T + 2Sg (24 at S = 4, g = 1), so the substeps
+// compute O^3 = 22^3, 20^3, 18^3, 16^3 sites for the 16^3 it keeps: 1.74x
+// the function's work where one block's window computes 2.92x. The window
+// is cut from the 4x4x4 blocks around the group, whose ids (and the
+// group's 8 output ids) are one row of the host's group table
+// (core/neighbors.group_table); the substeps are the same register-tiled
+// substep() at NTG threads.
+
+constexpr int NTG = 512;             // threads per thread block of the group design
+constexpr int GROUP_WIN = 64;        // a group row: its 4x4x4 window blocks,
+constexpr int GROUP_INTS = 72;       // then its 8 output blocks
+
+// Two windows (current and substep partner), the two table rows, and a
+// third window (the next group's, prefetched) where it fits and is taken;
+// kernels/stencil3d.group_smem_bytes is the same model.
+template <int C, int G, int T, int S>
+__host__ __device__ constexpr long long group_bytes(int windows) {
+  return windows * 4LL * Shape<C, G, 2 * T, S>::BUF + 2 * GROUP_INTS * 4;
+}
+
+// The instances: T = 8, a recomputed halo (S*g >= 2), S*g | T, two windows.
+template <int C, int G, int T, int S>
+__host__ __device__ constexpr bool group_fits() {
+  return T == 8 && S * G >= 2 && T % (S * G) == 0 &&
+         group_bytes<C, G, T, S>(2) <= SMEM_LIMIT;
+}
+
+template <int C, int G, int T, int S>
+__host__ __device__ constexpr bool group_prefetches() {
+  return group_bytes<C, G, T, S>(3) <= SMEM_LIMIT;
+}
+
+__device__ __forceinline__ void put_id(int* row, int t, int v, int nb_src) {
+  if (v < 0 || v >= nb_src) __trap();  // a group table that does not fit the store
+  row[t] = v;
+}
+
+// Issue the cp.async copies of one group's window into buf: per axis the
+// window is the last H planes of window block 0, all T of blocks 1 and 2
+// and the first H of block 3 (stage_window's pieces, one block wider).
+template <int C, int G, int T, int S>
+__device__ __forceinline__ void stage_group(float* buf,
+                                            const float* __restrict__ store,
+                                            const int* s_ids, int nb_src) {
+  using Sh = Shape<C, G, 2 * T, S>;
+  constexpr int H = Sh::H, P = Sh::P, T3 = T * T * T;
+  constexpr int GE = H % 4 == 0 ? 4 : (H % 2 == 0 ? 2 : 1);  // floats a copy
+  constexpr int CPR = P / GE;
+  constexpr int N = C * P * P * CPR;
+  for (int i = threadIdx.x; i < N; i += NTG) {
+    const int xc = i % CPR, row = i / CPR;
+    const int y = row % P, cz = row / P;
+    const int z = cz % P, c = cz / P;
+    const int x = xc * GE;
+    const int pa = z < H ? 0 : (z - H) / T + 1;  // 0 .. 3
+    const int pb = y < H ? 0 : (y - H) / T + 1;
+    const int pc = x < H ? 0 : (x - H) / T + 1;
+    const int sz = z - H - (pa - 1) * T;
+    const int sy = y - H - (pb - 1) * T;
+    const int sx = x - H - (pc - 1) * T;
+    const int blk = s_ids[(pa * 4 + pb) * 4 + pc];
+    cp_async<4 * GE>(
+        buf + ((c * P + z) * P + y) * P + x,
+        store + (static_cast<int64_t>(c) * nb_src + blk) * T3 + (sz * T + sy) * T + sx);
+  }
+}
+
+// Substeps U .. S-1 of a group's tile (edge TT = 2T) from cur, ping-pong
+// with nxt; returns the buffer that holds the (TT)^3 result at the origin.
+template <int RULE, int G, int TT, int S, int U, int TAPS>
+__device__ __forceinline__ float* group_substeps(float* cur, float* nxt,
+                                                       const float (&w)[TAPS]) {
+  if constexpr (U == S) {
+    return cur;
+  } else {
+    constexpr int P = TT + 2 * S * G;
+    substep<RULE, G, P, TT + 2 * G * (S - U - 1), NTG>(cur, nxt, w);
+    __syncthreads();
+    return group_substeps<RULE, G, TT, S, U + 1>(nxt, cur, w);
+  }
+}
+
+// The tile's result (edge 2T at fin's origin, pitch P) into its 8 output
+// blocks, the ids s_out[(dk * 2 + di) * 2 + dj].
+template <int C, int T, int P>
+__device__ __forceinline__ void write_group(const float* fin,
+                                            float* __restrict__ out,
+                                            const int* s_out, int out_nb) {
+  constexpr int TT = 2 * T, VW = 4;  // floats a store
+  constexpr int VPR = TT / VW;
+  constexpr int N = C * TT * TT * VPR;
+  constexpr int T3 = T * T * T;
+  static_assert(P % VW == 0 && T % VW == 0, "16-byte rows");
+  for (int i = threadIdx.x; i < N; i += NTG) {
+    const int xv = i % VPR, r = i / VPR;
+    const int y = r % TT, cz = r / TT;
+    const int z = cz % TT, c = cz / TT;
+    const int x = xv * VW;
+    const int b = s_out[((z / T) * 2 + y / T) * 2 + x / T];
+    const float* s = fin + ((c * P + z) * P + y) * P + x;
+    float* d = out + (static_cast<int64_t>(c) * out_nb + b) * T3 +
+               ((z % T) * T + y % T) * T + x % T;
+    *reinterpret_cast<float4*>(d) = *reinterpret_cast<const float4*>(s);
+  }
+}
+
+// Thread block i steps groups [ng*i/grid, ng*(i+1)/grid) of the table, one
+// thread block an SM. With prefetch (where a third window fits) the next
+// group's window streams in while this group's substeps run; else it
+// streams into the buffer the result does not occupy while the result is
+// written.
+template <int RULE, int G, int T, int S>
+__global__ void __launch_bounds__(NTG, 1)
+fused_group_sm90_kernel(const float* __restrict__ store, float* __restrict__ out,
+                        const float* __restrict__ weights,
+                        const int* __restrict__ groups, int ng, int nb_src,
+                        int out_nb, bool prefetch) {
+  constexpr int C = channels_of(RULE);
+  using Sh = Shape<C, G, 2 * T, S>;
+  constexpr bool PREFETCH = group_prefetches<C, G, T, S>();
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int s_tab[2][GROUP_INTS];
+
+  const int begin = static_cast<int>(static_cast<int64_t>(ng) * blockIdx.x / gridDim.x);
+  const int end = static_cast<int>(static_cast<int64_t>(ng) * (blockIdx.x + 1) / gridDim.x);
+  if (begin >= end) return;
+  const int t = threadIdx.x;
+
+  float w[Sh::TAPS];
+#pragma unroll
+  for (int i = 0; i < Sh::TAPS; ++i) w[i] = __ldg(weights + i);
+
+  float* win = smem;
+  float* alt = smem + Sh::BUF;
+  float* stg = smem + 2 * Sh::BUF;  // used only with prefetch
+  auto row = [&](int gi) {
+    return __ldg(groups + static_cast<int64_t>(gi) * GROUP_INTS + t);
+  };
+
+  if (t < GROUP_INTS) put_id(s_tab[0], t, row(begin), nb_src);
+  int ahead = t < GROUP_INTS && begin + 1 < end ? row(begin + 1) : 0;
+  __syncthreads();
+  stage_group<C, G, T, S>(win, store, s_tab[0], nb_src);
+  cp_async_commit();
+
+  for (int gi = begin; gi < end; ++gi) {
+    const int k = (gi - begin) & 1;
+    const bool more = gi + 1 < end;
+    if (more && t < GROUP_INTS) {
+      put_id(s_tab[k ^ 1], t, ahead, nb_src);
+      if (gi + 2 < end) ahead = row(gi + 2);
+    }
+    if (PREFETCH && prefetch) {
+      if (more) {
+        __syncthreads();
+        stage_group<C, G, T, S>(stg, store, s_tab[k ^ 1], nb_src);
+        cp_async_commit();
+        cp_async_wait<1>();  // this group's window; the next one's may fly
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const float* fin = group_substeps<RULE, G, 2 * T, S, 0>(win, alt, w);
+      write_group<C, T, Sh::P>(fin, out, s_tab[k] + GROUP_WIN, out_nb);
+      __syncthreads();
+      float* done = win;
+      win = stg;
+      stg = done;
+    } else {
+      cp_async_wait<0>();
+      __syncthreads();
+      float* fin = group_substeps<RULE, G, 2 * T, S, 0>(win, alt, w);
+      float* next = fin == win ? alt : win;
+      if (more) {
+        stage_group<C, G, T, S>(next, store, s_tab[k ^ 1], nb_src);
+        cp_async_commit();
+      }
+      write_group<C, T, Sh::P>(fin, out, s_tab[k] + GROUP_WIN, out_nb);
+      __syncthreads();
+      win = next;
+      alt = fin;
+    }
+  }
+}
+
+struct GroupArgs {
+  const float* store;
+  float* out;
+  const float* w;
+  const int* groups;
+  int ng, nb_src, out_nb;
+  int overlap;
+  cudaStream_t stream;
+};
+
+// As many persistent thread blocks as the card holds at once (one an SM,
+// with two windows or three: the registers of 512 threads allow no
+// second), or one a group where there are fewer groups. overlap < 0
+// prefetches wherever a third window fits, 0 never, 1 always (refused
+// where it does not fit).
+template <int RULE, int G, int T, int S>
+cudaError_t launch_group(const GroupArgs& a) {
+  constexpr int C = channels_of(RULE);
+  if constexpr (!group_fits<C, G, T, S>()) {
+    return cudaErrorInvalidValue;
+  } else {
+    constexpr bool FITS3 = group_prefetches<C, G, T, S>();
+    if (a.overlap > 0 && !FITS3) return cudaErrorInvalidValue;
+    const bool prefetch = FITS3 && a.overlap != 0;
+    auto kern = fused_group_sm90_kernel<RULE, G, T, S>;
+    constexpr int MAX_DEVICES = 64;
+    constexpr size_t smax = sizeof(float) * (FITS3 ? 3 : 2) * Shape<C, G, 2 * T, S>::BUF;
+    const size_t smem = sizeof(float) * (prefetch ? 3 : 2) * Shape<C, G, 2 * T, S>::BUF;
+    static int resident[MAX_DEVICES];  // thread blocks the card holds at once
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+    if (resident[dev] == 0) {
+      err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smax));
+      if (err != cudaSuccess) return err;
+      int sms = 0, per = 0;
+      if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                        dev)) != cudaSuccess ||
+          (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kern, NTG, smax)) !=
+              cudaSuccess)
+        return err;
+      if (per < 1) return cudaErrorInvalidConfiguration;
+      resident[dev] = sms * per;
+    }
+    const int grid = a.ng < resident[dev] ? a.ng : resident[dev];
+    kern<<<grid, NTG, smem, a.stream>>>(a.store, a.out, a.w, a.groups, a.ng,
+                                        a.nb_src, a.out_nb, prefetch);
+    return cudaGetLastError();
+  }
+}
+
+template <int RULE>
+cudaError_t dispatch_group(int T, int g, int S, const GroupArgs& a) {
+  if (T != 8) return cudaErrorInvalidValue;
+  if (g == 1 && S == 2) return launch_group<RULE, 1, 8, 2>(a);
+  if (g == 1 && S == 4) return launch_group<RULE, 1, 8, 4>(a);
+  if (g == 2 && S == 1) return launch_group<RULE, 2, 8, 1>(a);
+  if (g == 2 && S == 2) return launch_group<RULE, 2, 8, 2>(a);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -597,6 +865,32 @@ int repro_stencil_sum_resident_sm90_f32(const void* store, void* out,
                   {{BC_PERIODIC, BC_PERIODIC, BC_PERIODIC}, {0.f, 0.f, 0.f}},
                   overlap, static_cast<cudaStream_t>(stream)};
   return dispatch<RULE_IDENTITY>(T, g, 1, a);
+}
+
+// S fused timesteps of the group design over the periodic resident cube:
+// store f32 (C, nb_src, T,T,T) -> out f32 (C, nb_src, T,T,T), channels
+// out_nb >= nb_src blocks apart; groups int32 (ng, 72), one row a group
+// (its 4x4x4 window blocks, then its 8 output blocks; every block an
+// output of one row). store and out 16-byte aligned. overlap: 1 prefetches
+// the next group's window beside the substeps, 0 streams it in while the
+// result is written, -1 prefetches where a third window fits
+// (launch_group()). An instance this design does not take returns
+// cudaErrorInvalidValue.
+int repro_stencil_step_fused_group_sm90_f32(const void* store, void* out,
+                                            const void* w, const void* groups,
+                                            int ng, int nb_src, int out_nb,
+                                            int T, int g, int S, int rule,
+                                            int overlap, void* stream) {
+  const GroupArgs a = {static_cast<const float*>(store), static_cast<float*>(out),
+                       static_cast<const float*>(w), static_cast<const int*>(groups),
+                       ng, nb_src, out_nb, overlap, static_cast<cudaStream_t>(stream)};
+  switch (rule) {
+    case RULE_GOL: return dispatch_group<RULE_GOL>(T, g, S, a);
+    case RULE_JACOBI: return dispatch_group<RULE_JACOBI>(T, g, S, a);
+    case RULE_IDENTITY: return dispatch_group<RULE_IDENTITY>(T, g, S, a);
+    case RULE_WAVE: return dispatch_group<RULE_WAVE>(T, g, S, a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 const char* repro_cuda_error_string(int code) {

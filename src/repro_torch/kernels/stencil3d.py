@@ -10,14 +10,19 @@ minus ``interpret``, plus ``out=``:
                          assembled in the kernel from the neighbour table;
 ``stencil_sum_blocks``   the repack form's tap sum over halo-extended blocks.
 
-The fused step and the resident sum have two CUDA designs, and
-:func:`fused_design` (a pure function of T, g, S, C and the dtype) picks
-one: ``csrc/stencil3d_sm90.cu`` (compile-time shapes, register tiling
-along k, and, where that costs no thread block per SM, persistent thread
-blocks that prefetch the next window with cp.async) for f32 stores with
-T ∈ {8, 16}, g ∈ {1, 2}, S·g | T, C ∈ {1, 2} where its shared memory fits;
-``csrc/stencil3d.cu`` (one thread block per output block, the window in
-shared memory) for every other shape and dtype. The repack form's tap sum
+The fused step and the resident sum have three CUDA designs, and
+:func:`fused_design` (a pure function of T, g, S, C, the dtype and whether
+the launch steps a whole periodic cube) picks one: the group design of
+``csrc/stencil3d_sm90.cu`` (one thread block steps an aligned 2×2×2 group
+of blocks as one tile, from the group table of core/neighbors) where the
+launch steps a whole periodic cube of an even number of blocks per edge,
+f32, T=8, S·g ≥ 2; the same file's block design (compile-time shapes,
+register tiling along k, and, where that costs no thread block per SM,
+persistent thread blocks that prefetch the next window with cp.async) for
+the other f32 stores with T ∈ {8, 16}, g ∈ {1, 2}, S·g | T, C ∈ {1, 2}
+where its shared memory fits; ``csrc/stencil3d.cu`` (one thread block per
+output block, the window in shared memory) for every other shape and
+dtype. The repack form's tap sum
 has two as well, and :func:`blocks_design` (T, g and the dtype) picks
 one: ``csrc/stencil3d_blocks_sm90.cu`` (persistent thread blocks fed by
 bulk copies into a ring, columns of sites in registers) for T ∈ {8, 16},
@@ -47,6 +52,7 @@ import torch
 
 from repro_torch.core.boundary import (PERIODIC, BoundarySpec, MixedBoundary,
                                        as_boundary)
+from repro_torch.core.neighbors import GROUP_COLS, group_table_device
 
 from . import _build, ref
 from .rules import RULES, get_rule
@@ -54,7 +60,8 @@ from .rules import RULES, get_rule
 __all__ = ["stencil_sum_blocks", "stencil_sum_resident", "stencil_step_fused",
            "DTYPES", "LAUNCHES", "reset_launches", "SMEM_LIMIT_BYTES",
            "blocks_design", "blocks_sm90_smem_bytes", "fused_design",
-           "fused_smem_bytes", "halo_smem_bytes", "sm90_smem_bytes"]
+           "fused_smem_bytes", "group_smem_bytes", "halo_smem_bytes",
+           "sm90_smem_bytes"]
 
 LAUNCHES, reset_launches = _build.LAUNCHES, _build.reset_launches
 
@@ -64,6 +71,8 @@ SMEM_LIMIT_BYTES = 232_448
 _TABLE_SMEM_BYTES = 4 * (27 + 6)
 # What the Hopper design (csrc/stencil3d_sm90.cu) takes.
 _SM90_T, _SM90_G, _SM90_C = (8, 16), (1, 2), (1, 2)
+# The block edge of its group design: a group is a tile of 2T.
+_GROUP_T = 8
 # The store dtypes every kernel takes, by the code its C entry point reads.
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
           torch.float8_e4m3fn: 3, torch.float8_e5m2: 4}
@@ -92,19 +101,41 @@ def sm90_smem_bytes(T: int, g: int, S: int, *, fields: int = 1,
     return itemsize * 3 * fields * (T + 2 * S * g) ** 3 + 2 * _TABLE_SMEM_BYTES
 
 
+def group_smem_bytes(T: int, g: int, S: int, *, fields: int = 1,
+                     windows: int = 2, itemsize: int = 4) -> int:
+    """Shared memory of one thread block of the group design: ``windows``
+    C·(2T+2Sg)³ windows (two that the substeps ping-pong between, and a
+    third, the next group's, prefetched where it fits) plus two rows of
+    the group table (72 int32 each)."""
+    return itemsize * windows * fields * (2 * T + 2 * S * g) ** 3 + 2 * 4 * GROUP_COLS
+
+
 def fused_design(T: int, g: int, S: int, C: int,
-                 dtype: torch.dtype = torch.float32) -> str:
+                 dtype: torch.dtype = torch.float32, *,
+                 cube: bool = False) -> str:
     """The CUDA design ``stencil_step_fused`` launches for a ``dtype`` store
     of blocks of edge T, radius g, S substeps and C channels
-    (``stencil_sum_resident`` is S=1, C=1): ``"sm90"``
-    (``csrc/stencil3d_sm90.cu``) for f32 with T ∈ {8, 16}, g ∈ {1, 2},
-    S·g | T and C ∈ {1, 2} where :func:`sm90_smem_bytes` fits in
-    :data:`SMEM_LIMIT_BYTES`; ``"simple"`` (``csrc/stencil3d.cu``) for
+    (``stencil_sum_resident`` is S=1, C=1). ``cube``: the launch steps a
+    whole periodic cube of an even number of blocks per edge (nb == nb_src
+    == nt³, the periodic contract, a neighbour table of which
+    core.neighbors.group_table finds the groups).
+
+    ``"sm90_group"`` (``csrc/stencil3d_sm90.cu``, one thread block a 2×2×2
+    group of blocks) for such a cube in f32 with T=8, g ∈ {1, 2}, C ∈ {1,
+    2}, S·g | T and S·g ≥ 2 (a recomputed halo to cut) where two windows
+    of :func:`group_smem_bytes` fit in :data:`SMEM_LIMIT_BYTES`;
+    ``"sm90"`` (the same file, one thread block a block) for the other f32
+    cases with T ∈ {8, 16}, g ∈ {1, 2}, S·g | T and C ∈ {1, 2} where
+    :func:`sm90_smem_bytes` fits; ``"simple"`` (``csrc/stencil3d.cu``) for
     every other case, bf16, f16 and fp8 stores among them. Nothing else,
     and never a failure, decides it."""
-    if dtype == torch.float32 and T in _SM90_T and g in _SM90_G \
-            and C in _SM90_C and S >= 1 and T % (S * g) == 0 \
-            and sm90_smem_bytes(T, g, S, fields=C) <= SMEM_LIMIT_BYTES:
+    if dtype != torch.float32 or g not in _SM90_G or C not in _SM90_C \
+            or S < 1 or T % (S * g):
+        return "simple"
+    if cube and T == _GROUP_T and S * g >= 2 \
+            and group_smem_bytes(T, g, S, fields=C) <= SMEM_LIMIT_BYTES:
+        return "sm90_group"
+    if T in _SM90_T and sm90_smem_bytes(T, g, S, fields=C) <= SMEM_LIMIT_BYTES:
         return "sm90"
     return "simple"
 
@@ -173,8 +204,11 @@ def _lib_sm90() -> ctypes.CDLL:
     lib.repro_stencil_step_fused_sm90_f32.argtypes = [
         p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, f, f, f, i, p]
     lib.repro_stencil_sum_resident_sm90_f32.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.repro_stencil_step_fused_group_sm90_f32.argtypes = [
+        p, p, p, p, i, i, i, i, i, i, i, i, p]
     for fn in (lib.repro_stencil_step_fused_sm90_f32,
-               lib.repro_stencil_sum_resident_sm90_f32):
+               lib.repro_stencil_sum_resident_sm90_f32,
+               lib.repro_stencil_step_fused_group_sm90_f32):
         fn.restype = ctypes.c_int
     return lib
 
@@ -258,12 +292,14 @@ def _emit(result: torch.Tensor, out: torch.Tensor | None) -> torch.Tensor:
 
 
 def _launch(name: str, design: str, device: torch.device, *args) -> None:
-    """Launch ``name``'s kernel of ``design`` ("sm90" or "simple") and
-    count it, under its design too."""
+    """Launch ``name``'s kernel of ``design`` ("sm90", "sm90_group" or
+    "simple") and count it, under its design too."""
     if design == "simple":
         lib, entry = _lib(), f"repro_{name}"
     elif name == "stencil_sum_blocks":
         lib, entry = _lib_blocks_sm90(), "repro_stencil_sum_blocks_sm90"
+    elif design == "sm90_group":
+        lib, entry = _lib_sm90(), f"repro_{name}_group_sm90_f32"
     else:
         lib, entry = _lib_sm90(), f"repro_{name}_sm90_f32"
     _build.launch(lib, name, getattr(lib, entry), device, *args)
@@ -347,36 +383,48 @@ def stencil_step_fused(store: torch.Tensor, weights: torch.Tensor,
                          f"{sorted(_RULE_IDS)}")
     if out is None:
         out = torch.empty(out_shape, dtype=store.dtype, device=dev)
-    _fused_on_card(fused_design(T, g, S, C, store.dtype), store, weights, nbr,
-                   bnd if bc.clamped else None, out, out_nb, g=g, S=S,
-                   rule=r.name, bc=bc)
+    # a whole periodic cube whose table groups (its group table is built at
+    # the table's first launch, then looked up) may take the group design
+    groups = group_table_device(nbr) if not bc.clamped and nb == nb_src else None
+    _fused_on_card(fused_design(T, g, S, C, store.dtype, cube=groups is not None),
+                   store, weights, nbr, bnd if bc.clamped else None, out, out_nb,
+                   g=g, S=S, rule=r.name, bc=bc, groups=groups)
     return out
 
 
 def _fused_on_card(design: str, store, weights, nbr, bnd, out, out_nb: int, *,
                    g: int, S: int, rule: str, bc,
-                   overlap: bool | None = None) -> None:
+                   overlap: bool | None = None,
+                   groups: torch.Tensor | None = None) -> None:
     """Launch ``design``'s fused kernel on checked CUDA tensors (its own
     limits are checked again in C, which returns an error that raises).
-    The Hopper design runs with its overlap (persistent thread blocks that
-    prefetch the next window) where that costs no thread block per SM;
-    ``overlap=True`` or ``False`` forces either way, for timing."""
+    The Hopper block design runs with its overlap (persistent thread blocks
+    that prefetch the next window) where that costs no thread block per SM;
+    ``overlap=True`` or ``False`` forces either way, for timing. The group
+    design steps the groups of ``groups``, the periodic cube's group table
+    of ``nbr`` (core.neighbors.group_table_device), and prefetches the next
+    group's window beside the substeps where a third window fits
+    (``overlap=False`` streams it in while the result is written instead,
+    for timing; ``True`` raises where it does not fit)."""
     nb, nb_src, T = nbr.shape[0], store.shape[-4], store.shape[-1]
     dest, dest_nb = out, out_nb
-    extra = (DTYPES[store.dtype],)
-    if design == "sm90":
+    if design != "simple":
         store = _aligned(store)
         if out.data_ptr() % 16:
             dest = torch.empty(out.shape, dtype=out.dtype, device=out.device)
             dest_nb = nb
-        extra = (-1 if overlap is None else int(overlap),)
-    axes = bc.axes
-    _launch("stencil_step_fused", design, store.device,
-            store.data_ptr(), dest.data_ptr(), weights.data_ptr(),
-            nbr.data_ptr(), None if bnd is None else bnd.data_ptr(),
-            nb, nb_src, dest_nb, T, g, S, _RULE_IDS[rule],
-            *(_BC_IDS[a.kind] for a in axes), *(float(a.value) for a in axes),
-            *extra)
+    if design == "sm90_group":
+        args = (groups.data_ptr(), groups.shape[0], nb_src, dest_nb, T, g, S,
+                _RULE_IDS[rule], -1 if overlap is None else int(overlap))
+    else:
+        axes = bc.axes
+        args = (nbr.data_ptr(), None if bnd is None else bnd.data_ptr(),
+                nb, nb_src, dest_nb, T, g, S, _RULE_IDS[rule],
+                *(_BC_IDS[a.kind] for a in axes), *(float(a.value) for a in axes),
+                DTYPES[store.dtype] if design == "simple"
+                else -1 if overlap is None else int(overlap))
+    _launch("stencil_step_fused", design, store.device, store.data_ptr(),
+            dest.data_ptr(), weights.data_ptr(), *args)
     if dest is not out:
         out.copy_(dest)
 

@@ -103,6 +103,26 @@ def test_sm90_smem_model_matches_the_kernel_layout():
         assert tk.sm90_smem_bytes(T, g, S, fields=C) > tk.fused_smem_bytes(T, g, S, fields=C)
 
 
+def test_group_smem_model_matches_the_kernel_layout():
+    """Two C·(2T+2Sg)³ f32 windows, or three where the next group's is
+    prefetched, plus two group-table rows of 72 int32 entries
+    (csrc/stencil3d_sm90.cu, group_bytes())."""
+    assert tk.group_smem_bytes(8, 1, 4, fields=2) == 2 * 2 * 24 ** 3 * 4 + 576
+    assert tk.group_smem_bytes(8, 1, 4, fields=2) == 221_760 <= tk.SMEM_LIMIT_BYTES
+    assert tk.group_smem_bytes(8, 1, 4, fields=2, windows=3) > tk.SMEM_LIMIT_BYTES
+    assert tk.group_smem_bytes(8, 1, 4, windows=3) == 165_888 + 576 <= tk.SMEM_LIMIT_BYTES
+    assert tk.group_smem_bytes(8, 1, 2, fields=2, windows=3) == 192_576
+    assert tk.group_smem_bytes(8, 2, 2) == tk.group_smem_bytes(8, 1, 4)  # H = 4
+    assert tk.group_smem_bytes(8, 1, 8) > tk.SMEM_LIMIT_BYTES  # two 32³ windows
+    assert tk.group_smem_bytes(8, 2, 4) > tk.SMEM_LIMIT_BYTES
+
+
+# The shapes of the parametrised cases below whose group design has an
+# instance: over a whole periodic cube they take it.
+_GROUPED = {(8, 1, 4, 1), (8, 1, 2, 2), (8, 1, 4, 2), (8, 2, 1, 1), (8, 2, 2, 2),
+            (8, 2, 1, 2)}
+
+
 @pytest.mark.parametrize("T,g,S,C,want", [
     (8, 1, 4, 1, "sm90"),     # the resident and distributed main paths
     (8, 1, 1, 1, "sm90"),     # stencil_sum_resident's main shape
@@ -121,9 +141,19 @@ def test_sm90_smem_model_matches_the_kernel_layout():
     (16, 4, 1, 1, "simple"),  # g outside {1, 2}
     (8, 1, 3, 1, "simple"),   # S·g does not divide T
     (8, 1, 2, 3, "simple"),   # three channels
+    (8, 1, 4, 2, "sm90"),     # the wave cells' shape
+    (8, 2, 1, 1, "sm90"),
+    (8, 2, 2, 2, "sm90"),
+    (8, 2, 1, 2, "sm90"),
 ])
 def test_fused_design_is_a_function_of_the_shape(T, g, S, C, want):
+    """The block designs for any store; over a whole periodic cube of an
+    even edge the group design where it has an instance (T=8, S·g ≥ 2, two
+    windows fit), else the same design."""
     assert tk.fused_design(T, g, S, C) == want
+    grouped = "sm90_group" if (T, g, S, C) in _GROUPED else want
+    assert tk.fused_design(T, g, S, C, cube=True) == grouped
+    assert tk.fused_design(T, g, S, C, torch.bfloat16, cube=True) == "simple"
 
 
 def test_fused_design_over_its_whole_domain():
@@ -146,6 +176,29 @@ def test_fused_design_over_its_whole_domain():
                         picked[C].append((T, g, S))
     assert len(picked[1]) == 12 and len(picked[2]) == 8
     assert all(S in (1, 2, 4, 8, 16) for _, _, S in picked[1])
+
+
+def test_group_design_over_its_whole_domain():
+    """Over a whole periodic cube: sm90_group exactly where the group
+    design has an instance (T=8, g ∈ {1, 2}, C ∈ {1, 2}, S·g | T, S·g ≥ 2,
+    two windows fit), the block design's choice elsewhere; 4 (g, S) for
+    each channel count: the 16 group kernels of csrc/stencil3d_sm90.cu
+    (3 rules of one channel, wave of two)."""
+    picked = {C: [] for C in (1, 2)}
+    for T in range(1, 33):
+        for g in range(1, 5):
+            for S in range(1, 33):
+                for C in (1, 2, 3):
+                    design = tk.fused_design(T, g, S, C, cube=True)
+                    fits = 8 * C * (2 * T + 2 * S * g) ** 3 + 576 <= 232_448
+                    want = (T == 8 and g in (1, 2) and C < 3 and T % (S * g) == 0
+                            and S * g >= 2 and fits)
+                    if want:
+                        assert design == "sm90_group", (T, g, S, C)
+                        picked[C].append((g, S))
+                    else:
+                        assert design == tk.fused_design(T, g, S, C), (T, g, S, C)
+    assert picked[1] == picked[2] == [(1, 2), (1, 4), (2, 1), (2, 2)]
 
 
 def test_cpu_runs_count_no_design():
@@ -186,7 +239,8 @@ def test_jacobi_product_is_the_ieee_quotient(g):
 def _column_depth(g: int, O: int, nt: int = 128, nx: int = 2) -> int:
     """column_depth of csrc/stencil3d_sm90.cu: the depth nz ≤ 8 (g=1) or
     ≤ 2 (g=2) of the columns of a substep with O³ sites whose rounds of
-    128 columns times the instructions of one column are fewest."""
+    nt columns (128 in the block design, 512 in the group design) times
+    the instructions of one column are fewest."""
     K = 2 * g + 1
 
     def cost(nz):
@@ -206,19 +260,24 @@ def test_column_depths_of_the_main_shapes():
     """The substeps of T=8, S=4, g=1 (O = 14, 12, 10, 8) and of S=1."""
     assert [_column_depth(1, O) for O in (14, 12, 10, 8)] == [3, 4, 2, 2]
     assert _column_depth(2, 8) == 2 and _column_depth(2, 12) == 1
+    # the group design's 512 threads at S=4 (O = 22, 20, 18, 16) and g=2
+    assert [_column_depth(1, O, 512) for O in (22, 20, 18, 16)] == [6, 4, 6, 4]
+    assert _column_depth(2, 20, 512) == 2 and _column_depth(2, 16, 512) == 2
 
 
-def _tiled_substep(x: torch.Tensor, w: torch.Tensor, g: int, rule) -> torch.Tensor:
+def _tiled_substep(x: torch.Tensor, w: torch.Tensor, g: int, rule,
+                   threads: int = 128) -> torch.Tensor:
     """One substep as the Hopper design orders its arithmetic, on windows
     (nb, E, E, E) or (C, nb, E, E, E): columns of nz sites along k
-    (:func:`_column_depth`; the last column moved back to end at O), each
-    streaming the window's k-planes in increasing order into the live
-    accumulators whose dk that plane is, in di, dj order."""
+    (:func:`_column_depth` at the thread block's ``threads``; the last
+    column moved back to end at O), each streaming the window's k-planes in
+    increasing order into the live accumulators whose dk that plane is, in
+    di, dj order."""
     multi = x.ndim == 5
     u = x[0] if multi else x
     nb, E = u.shape[0], u.shape[-1]
     K, O = 2 * g + 1, E - 2 * g
-    nz = _column_depth(g, O)
+    nz = _column_depth(g, O, threads)
     nzg = -(-O // nz)
     tap = torch.empty((nb, O, O, O))
     for zg in range(nzg):
@@ -280,3 +339,51 @@ def test_tiled_accumulation_order_is_bit_exact(rule, bc):
                 assert torch.equal(tiled, plain)
                 assert_matches(tiled, jax_fused(store.numpy(), "hilbert", nt, bc, S, rule),
                                rule, (rule, bc, S))
+
+
+def _group_fused(store, w, nbr, *, g, S, rule):
+    """The group design in plain PyTorch over a periodic cube: each row of
+    the group table cuts its (2T+2Sg)³ window from its 4×4×4 window
+    blocks (per axis the last S·g planes of block 0, all of blocks 1 and 2,
+    the first S·g of block 3), runs the S shrinking substeps in the
+    kernel's column order at 512 threads, and writes the 2T tile's eight
+    blocks to the row's output ids."""
+    groups = tnbr.group_table(nbr)
+    multi = store.ndim == 5
+    st = store if multi else store[None]
+    C, T, h = st.shape[0], st.shape[-1], S * g
+    ids = groups[:, :tnbr.GROUP_WINDOW].long().reshape(-1, 4, 4, 4)
+    ng = ids.shape[0]
+    whole = st[:, ids].permute(0, 1, 2, 5, 3, 6, 4, 7).reshape(C, ng, 4 * T, 4 * T, 4 * T)
+    x = whole[..., T - h:3 * T + h, T - h:3 * T + h, T - h:3 * T + h]
+    x = x if multi else x[0]
+    r = get_rule(rule)
+    for _ in range(S):
+        x = _tiled_substep(x, w, g, r, threads=512)
+    tile = (x if multi else x[None]).reshape(C, ng, 2, T, 2, T, 2, T)
+    blocks = tile.permute(0, 1, 2, 4, 6, 3, 5, 7).reshape(C, ng * 8, T, T, T)
+    out = torch.full_like(st, float("nan"))
+    out[:, groups[:, tnbr.GROUP_WINDOW:].long().flatten()] = blocks
+    return out if multi else out[0]
+
+
+@pytest.mark.parametrize("S", [2, 4])
+@pytest.mark.parametrize("rule", ["gol", "wave"])
+def test_group_tile_order_is_bit_exact(rule, S):
+    """The group design's window and order of the arithmetic, emulated at
+    M=32 (eight groups of T=8 blocks) on every block curve, g=1 with
+    random weights but for gol, and g=2 at S/2: bit-equal to
+    ref.stencil_fused_ref, so to the block design."""
+    Tt, nt = 8, 4
+    rng = np.random.default_rng(10 * S + RULES.index(rule))
+    for kind in KINDS:
+        nbr = tnbr.neighbor_table_device(kind, nt, device="cpu")
+        for g, steps in ((1, S), (2, S // 2)):
+            s = 2 * g + 1
+            w = uniform_weights(g, "cpu") if rule == "gol" else torch.from_numpy(
+                rng.normal(size=(s, s, s)).astype(np.float32))
+            store = torch.from_numpy(random_store(rule, nt ** 3, Tt, seed=S + 5 * g))
+            assert tk.fused_design(Tt, g, steps, store.ndim - 3, cube=True) == "sm90_group"
+            got = _group_fused(store, w, nbr, g=g, S=steps, rule=rule)
+            want = tref.stencil_fused_ref(store, w, nbr, S=steps, rule=rule)
+            assert torch.equal(got, want), (kind, g, steps)
